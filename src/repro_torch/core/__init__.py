@@ -1,10 +1,14 @@
 """Core of the PyTorch/CUDA port (mirrors ``repro.core``).
 
-This slice ports the online admission path:
+Ported so far:
   problem:     BIG sentinel + feasibility epsilons, request tensors
   graph:       ResourceGraph, DataflowPath, Mapping, validate_mapping
   topology:    waxman / barabasi_albert / region_* generators, random_dataflow
+  exact:       pathmap_exact (paper Alg. 1-3), brute_force oracle
   leastcost:   leastcost_python (faithful), leastcost_torch[_batched]
+  simulator:   simulate (paper Alg. 4, async message passing, §3.4 policies)
+  distributed: leastcost_shard_map (decentralized, torch.distributed ranks)
+  heuristics:  anneal_python (§3.4.2), random_k_python (§3.4.3)
   reconstruct: parent-pointer backtrack + sound fallback
   engine:      solve / solve_batch / solve_batch_dispatch
   residual:    ResidualState — device-resident residual tensors
@@ -21,12 +25,16 @@ from .graph import (  # noqa: F401
     route_from_assign,
     validate_mapping,
 )
+from .exact import ExactStats, brute_force, pathmap_exact  # noqa: F401
 from .leastcost import (  # noqa: F401
     HeuristicStats,
     leastcost_python,
     leastcost_torch,
     leastcost_torch_batched,
 )
+from .simulator import SimConfig, SimStats, simulate  # noqa: F401
+from .heuristics import anneal_python, random_k_python  # noqa: F401
+from .distributed import DistStats, leastcost_shard_map  # noqa: F401
 from .engine import (  # noqa: F401
     Stats,
     backends,

@@ -6,11 +6,17 @@ Port of ``repro/core/engine.py``:
     solve_batch(rg, dfs, **cfg)                    -> (list[Mapping | None], Stats)
     solve_batch_dispatch(rg, dfs, **cfg)           -> PendingBatchSolve
 
-Registered methods in this slice:
+Registered methods:
 
+  ``exact``             paper-faithful PathMap (Alg. 1-3), numpy
+  ``simulate``          asynchronous message-passing simulator (Alg. 4), numpy
   ``leastcost_python``  faithful path-carrying LeastCostMap (§3.4.1)
+  ``anneal``            AnnealedLeastCostMap (§3.4.2), numpy
+  ``random_k``          RandomNeighbor (§3.4.3), numpy
   ``leastcost_torch``   tensorized (min,+) DP; every superstep is the CUDA
                         kernel on a CUDA device, its plain version on the CPU
+  ``shard_map``         the decentralized BSP engine over torch.distributed
+                        ranks; its move is the masked min-plus CUDA kernel
 
 ``view=`` (region-local compacted solves) is accepted for the reference's
 signature but must be None until ``core/compact.py`` is ported.
@@ -246,6 +252,21 @@ def solve_batch_dispatch(
 # ---------------------------------------------------------------------------
 
 
+@register("exact")
+def _exact(rg, df, **cfg):
+    from .exact import pathmap_exact
+
+    return pathmap_exact(rg, df, **cfg)
+
+
+@register("simulate")
+def _simulate(rg, df, **cfg):
+    from .simulator import SimConfig, simulate
+
+    sim_cfg = cfg.pop("cfg", None) or SimConfig(**cfg)
+    return simulate(rg, df, sim_cfg)
+
+
 @register("leastcost_python")
 def _leastcost_python(rg, df, **cfg):
     from .leastcost import leastcost_python
@@ -253,8 +274,29 @@ def _leastcost_python(rg, df, **cfg):
     return leastcost_python(rg, df, **cfg)
 
 
+@register("anneal")
+def _anneal(rg, df, **cfg):
+    from .heuristics import anneal_python
+
+    return anneal_python(rg, df, **cfg)
+
+
+@register("random_k")
+def _random_k(rg, df, **cfg):
+    from .heuristics import random_k_python
+
+    return random_k_python(rg, df, **cfg)
+
+
 @register("leastcost_torch")
 def _leastcost_torch(rg, df, **cfg):
     from .leastcost import leastcost_torch
 
     return leastcost_torch(rg, df, **cfg)
+
+
+@register("shard_map")
+def _shard_map_backend(rg, df, **cfg):
+    from .distributed import leastcost_shard_map
+
+    return leastcost_shard_map(rg, df, **cfg)

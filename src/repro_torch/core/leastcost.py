@@ -228,6 +228,17 @@ def _apply_warm(C0, pv0, pj0, tensors):
     return C0, pv0, pj0
 
 
+def _place_step(C, cap, prefix):
+    """P[v,k] = min over x>=0 of C[v,k-x] s.t. prefix[k]-prefix[k-x] <= cap[v],
+    with pj[v,k] = the achieving j = k-x (ties keep the largest j).
+
+    Transcription of the reference's ``_place_step``, which is plain jnp
+    outside any Pallas kernel: the batched plain place with B = 1.  C (n, K).
+    """
+    P, pj = _batched._place_plain(C[None], cap, prefix[None])
+    return P[0], pj[0]
+
+
 def _default_impl(device: torch.device, kernel_impl: Optional[str]) -> str:
     impl = kernel_impl or ("cuda" if device.type == "cuda" else "plain")
     if impl not in KERNEL_IMPLS:

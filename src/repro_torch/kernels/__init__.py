@@ -1,1 +1,1 @@
-from . import minplus  # noqa: F401
+from . import minplus, place  # noqa: F401

@@ -8,9 +8,8 @@ against one shared network (shapes unpadded):
     update: Cn = where(C' < C - EPS_IMPROVE, C', C)   (+ parent pointers)
 
 Place ties go to the largest j, move ties to the first v.  The kernel is
-``csrc/batched_superstep.cu`` (CUDA C++ for ``sm_90a``), built with ``nvcc``
-at first use into ``build/repro_torch/`` under the checkout, keyed on a hash
-of its source and flags, and loaded with ``ctypes``.
+``csrc/batched_superstep.cu`` (CUDA C++ for ``sm_90a``), built at first use
+by ``repro_torch.kernels._build`` and loaded with ``ctypes``.
 
 :func:`batched_superstep` launches the kernel for CUDA tensors and uses the
 plain version for CPU tensors.  :func:`batched_superstep_plain` is a torch
@@ -21,86 +20,28 @@ supersteps launched.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
 from ...core.problem import BIG, EPS_CAP_F32, EPS_IMPROVE
+from .._build import KernelLibrary, check_launch, load
+from .._build import check_tensor as _check
 
 LAUNCHES = 0  # kernel supersteps launched (one per wrapper call on CUDA)
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "batched_superstep.cu"
-# src/repro_torch/kernels/minplus/batched.py -> checkout root
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_s: float  # nvcc wall time; 0.0 on a cache hit
-    cache_hit: bool
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA superstep kernel cannot be "
-                       "built (put the CUDA toolkit's bin/ on PATH)")
+SOURCE = Path(__file__).resolve().parent / "csrc" / "batched_superstep.cu"
 
 
 @functools.cache
 def load_library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel's shared library."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"batched_superstep_{key}.so"
-    build_s, hit = 0.0, out.exists()
-    if not hit:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True)
-        build_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.batched_superstep_launch
+    kl = load(SOURCE)
+    fn = kl.lib.batched_superstep_launch
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.batched_superstep_error_string.argtypes = [ctypes.c_int]
-    lib.batched_superstep_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, out, build_s, hit)
-
-
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    return kl
 
 
 def batched_superstep(C, par_v, par_j, lat, bw, cap, prefix, breq_k, *,
@@ -130,23 +71,21 @@ def batched_superstep(C, par_v, par_j, lat, bw, cap, prefix, breq_k, *,
         _check("flags", flags, torch.int32, (4,), dev)
     if B * K * n >= 2**31:
         raise ValueError(f"state too large for the kernel: {(B, n, K)}")
-    lib = load_library().lib
+    kl = load_library()
     Cn = torch.empty_like(C)
     pvn = torch.empty_like(par_v)
     pjn = torch.empty_like(par_j)
     P = torch.empty((B * K, n), dtype=torch.float32, device=dev)
     Pj = torch.empty((B * K, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):  # launch on the tensors' device and stream
-        err = lib.batched_superstep_launch(
+        err = kl.lib.batched_superstep_launch(
             C.data_ptr(), par_v.data_ptr(), par_j.data_ptr(), lat.data_ptr(),
             bw.data_ptr(), cap.data_ptr(), prefix.data_ptr(),
             breq_k.data_ptr(), Cn.data_ptr(), pvn.data_ptr(), pjn.data_ptr(),
             P.data_ptr(), Pj.data_ptr(),
             None if flags is None else flags.data_ptr(), B, n, K,
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.batched_superstep_error_string(err).decode()
-        raise RuntimeError(f"batched_superstep kernel launch failed: {msg}")
+    check_launch(kl, err, "batched_superstep")
     LAUNCHES += 1
     return Cn, pvn, pjn
 

@@ -60,6 +60,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     calls = [
         lambda: T.OnlinePlacer(rg),
         lambda: engine.solve(rg, df),
+        lambda: engine.solve(rg, df, method="shard_map"),
         lambda: engine.solve_batch(rg, [df]),
         lambda: engine.solve_batch_dispatch(rg, [df]),
         lambda: leastcost.leastcost_torch(rg, df),
@@ -72,6 +73,8 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
 
 def test_explicit_cpu_runs_the_plain_path_and_cuda_impl_on_cpu_raises():
     rg, df = _tiny()
+    _, st = engine.solve(rg, df, method="shard_map", device="cpu")
+    assert st.kernel_impl == "plain" and st.rounds > 0
     m, st = leastcost.leastcost_torch(rg, df, device="cpu")
     assert st.kernel_impl == "plain" and st.rounds > 0
     with pytest.raises(ValueError, match="CUDA device"):

@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions, bit for
+bit, on a card.  Every test here is marked ``gpu`` and skips without one;
+the module imports no JAX, so on a machine with a card it runs as
+
+    PYTHONPATH=src python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.problem import BIG
+from repro_torch.kernels.minplus import batched as tk
+from repro_torch.kernels.minplus import minplus as tmp
+from repro_torch.kernels.minplus.ops import _breq_k
+from repro_torch.kernels.place import place as tplace
+
+from torch_kernel_cases import (minplus_instance, place_instance,
+                                place_tie_instance, random_state, tie_state)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,K,seed", [(3, 12, 6, 0), (5, 45, 9, 1),
+                                        (1, 33, 2, 2), (16, 100, 9, 3)])
+def test_kernel_matches_plain_on_card(card, B, n, K, seed):
+    for args in (random_state(B, n, K, seed), tie_state(),
+                 random_state(B, n, K, seed, big_frac=1.0)):
+        dev = [torch.from_numpy(a).to(card) for a in args]
+        before = tk.LAUNCHES
+        got = tk.batched_superstep(*dev)
+        assert tk.LAUNCHES == before + 1
+        _equal(got, tk.batched_superstep_plain(*dev))
+
+
+def _minplus_cases():
+    for n, K in [(8, 2), (17, 3), (50, 7), (128, 9), (130, 3), (256, 33),
+                 (300, 17), (1024, 9)]:
+        yield f"{n}x{K}", minplus_instance(n, K, seed=n * 1000 + K)
+    P, lat, bw, _ = minplus_instance(32, 4, seed=7)
+    yield "infeasible", (P, lat, bw, np.full((3,), BIG, np.float32))
+    yield "ties", (np.zeros((16, 3), np.float32), np.ones((16, 16), np.float32),
+                   np.full((16, 16), 100.0, np.float32),
+                   np.ones((2,), np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,args", list(_minplus_cases()),
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_masked_minplus_kernel_matches_plain_on_card(card, name, args):
+    P, lat, bw, breq = (torch.from_numpy(a).to(card) for a in args)
+    bq = _breq_k(breq, P.shape[1])
+    before = tmp.LAUNCHES
+    got = tmp.masked_minplus_cuda(P, lat, bw, bq)
+    assert tmp.LAUNCHES == before + 1
+    _equal(got, tmp.masked_minplus_plain(P, lat, bw, bq))
+    lo, hi = lat.shape[1] // 3, lat.shape[1] // 3 + lat.shape[1] // 2 + 1
+    block = tmp.masked_minplus_cuda(P, lat[:, lo:hi].contiguous(),
+                                    bw[:, lo:hi].contiguous(), bq)
+    _equal(block, (got[0][lo:hi], got[1][lo:hi]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,K", [(10, 3), (64, 9), (130, 7), (256, 17),
+                                 (300, 33), (4096, 9)])
+def test_place_window_kernel_matches_plain_on_card(card, n, K):
+    for args in (place_instance(n, K, seed=n + K), place_tie_instance()):
+        C, cap, prefix = (torch.from_numpy(a).to(card) for a in args)
+        before = tplace.LAUNCHES
+        got = tplace.place_window_cuda(C, cap, prefix)
+        assert tplace.LAUNCHES == before + 1
+        _equal(got, tplace.place_window_plain(C, cap, prefix))
