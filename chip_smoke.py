@@ -4,14 +4,19 @@
 
 Builds the port's three CUDA kernels from ``src/repro_torch`` (one ``nvcc``
 per source, all started together, into ``build/repro_torch/``) and holds
-each bit for bit against its plain PyTorch version on the card.  Then it
+each bit for bit against its plain PyTorch version on the card: the batched
+superstep in every launch regime its plan distinguishes (v split across a
+cluster or not, K chunked or not) and over twelve supersteps with its
+control word, using the seeded cases of ``tests/torch_kernel_cases.py``.
+It times the superstep at B = 1 and B = 64 (n = 1024) and at n = 4096, and
+after the main path at every batch size the main path launched.  Then it
 drives each path that runs a kernel, with that kernel's launch count reset
 just before and read just after:
 
 - online admission through ``OnlinePlacer`` + ``AdmissionPipeline`` on a
   1024-node Waxman network with a 512-arrival stream (the batched superstep
-  kernel), replayed with ``kernel_impl="plain"``, which must end in the
-  bitwise-same state;
+  kernel; its supersteps are also counted by batch size B), replayed with
+  ``kernel_impl="plain"``, which must end in the bitwise-same state;
 - the decentralized BSP engine ``solve(method="shard_map")`` on one rank
   over 32 distinct requests of that stream (the masked min-plus kernel),
   against its plain rerun and ``leastcost_torch``;
@@ -108,82 +113,118 @@ def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
     return e0.elapsed_time(e1) / (calls * replays)
 
 
-def random_state(B, n, K, seed, big_frac=0.4, BIG=np.float32(1e18)):
-    """Random superstep inputs shaped like the reference kernel test's."""
-    rng = np.random.default_rng(seed)
-    C = np.where(rng.random((B, n, K)) < big_frac, BIG,
-                 rng.random((B, n, K)) * 10).astype(np.float32)
-    pv = rng.integers(-1, n, size=(B, n, K)).astype(np.int32)
-    pj = rng.integers(-1, K, size=(B, n, K)).astype(np.int32)
-    lat = np.where(rng.random((n, n)) < 0.5, BIG,
-                   rng.random((n, n)) * 5 + 0.1).astype(np.float32)
-    np.fill_diagonal(lat, BIG)
-    bw = (rng.random((n, n)) * 100).astype(np.float32)
-    cap = (rng.random(n) * 6).astype(np.float32)
-    prefix = np.concatenate(
-        [np.zeros((B, 1), np.float32),
-         np.cumsum(rng.random((B, K - 1)).astype(np.float32) * 2, axis=1)],
-        axis=1).astype(np.float32)
-    breq_k = np.concatenate(
-        [np.full((B, 1), BIG, np.float32),
-         (rng.random((B, K - 2)) * 60).astype(np.float32),
-         np.full((B, 1), BIG, np.float32)], axis=1)
-    return [C, pv, pj, lat, bw, cap, prefix, breq_k]
-
-
-def tie_state(B=2, n=16, K=4, BIG=np.float32(1e18)):
-    C = np.full((B, n, K), BIG, np.float32)
-    C[:, :2, 1:3] = 0.0
-    pv = np.full((B, n, K), -1, np.int32)
-    lat = np.full((n, n), 1.0, np.float32)
-    np.fill_diagonal(lat, BIG)
-    bw = np.full((n, n), 100.0, np.float32)
-    cap = np.full((n,), 50.0, np.float32)
-    prefix = np.tile(np.arange(K, dtype=np.float32)[None, :], (B, 1)) * np.float32(0.1)
-    breq_k = np.concatenate([np.full((B, 1), BIG, np.float32),
-                             np.full((B, K - 2), 1.0, np.float32),
-                             np.full((B, 1), BIG, np.float32)], axis=1)
-    return [C, pv, pv.copy(), lat, bw, cap, prefix, breq_k]
+def assert_state_equal(got, want, what):
+    for g, w, field in zip(got, want, ("C", "par_v", "par_j")):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"kernel != plain on {what}: {field} differs "
+                                 f"in {bad} entries")
 
 
 def check_kernel(tk, tag):
-    """Phase 2: the kernel against the plain version, bitwise."""
+    """Phase 2: the superstep kernel against the plain version, bitwise, in
+    every launch regime its plan distinguishes (v split or not, K chunked
+    or not), and over twelve supersteps with the control word."""
+    from torch_kernel_cases import (random_state, relaxation_state,
+                                    split_tie_state, tie_state)
+
+    split_args, (first, second) = split_tie_state(N_NODES)
     cases = [
         ("random", random_state(3, 12, 6, 0)),
         ("random", random_state(4, 40, 7, 1)),
         ("ties", tie_state()),
+        ("first-v ties across v splits", split_args),
         ("big_overflow", random_state(2, 10, 5, 9, big_frac=1.0)),
+        ("big_overflow B=1", random_state(1, N_NODES, P + 1, 7, big_frac=1.0)),
+        ("big_overflow B=64", random_state(64, 300, P + 1, 8, big_frac=1.0)),
         ("ragged_n", random_state(5, 45, 9, 2)),
         ("ragged_n", random_state(3, 1000, 5, 3)),
-        ("B1_K2", random_state(1, 33, 2, 4)),
+        ("K=2", random_state(1, 33, 2, 4)),
+        ("K=2 B=1", random_state(1, N_NODES, 2, 9)),
+        ("K=33", random_state(5, 130, 33, 10)),
+        ("K=33 B=1", random_state(1, N_NODES, 33, 11)),
+        ("B=1", random_state(1, N_NODES, P + 1, 12)),
+        ("B=1 n=4096", random_state(1, 4096, P + 1, 13)),
         ("main_shape", random_state(64, N_NODES, P + 1, 5)),
         ("n4096", random_state(8, 4096, P + 1, 6)),
     ]
     for name, args in cases:
         dev = [torch.from_numpy(a).cuda() for a in args]
-        got = tk.batched_superstep(*dev)
+        ws = tk.make_workspace(*args[0].shape, dev[0].device)
+        got = tk.batched_superstep(*dev, workspace=ws)
         torch.cuda.synchronize()
-        want = tk.batched_superstep_plain(*dev)
-        for g, w, field in zip(got, want, ("C", "par_v", "par_j")):
-            if not torch.equal(g, w):
-                bad = int((g != w).sum())
-                raise AssertionError(
-                    f"kernel != plain on {name} {tuple(args[0].shape)}: "
-                    f"{field} differs in {bad} entries")
+        assert_state_equal(got, tk.batched_superstep_plain(*dev), name)
+        assert ws.ticket.item() == 0, "retire ticket not reset"
+        plan = ws.plan
+        if name.startswith("first-v"):
+            others = [w for w in range(N_NODES) if w not in (first, second)]
+            assert first // plan.v_chunk != second // plan.v_chunk, plan
+            assert (got[1][0, others, 1:3] == first).all()
         print(f"[{tag}] kernel == plain bitwise: {name} "
-              f"B,n,K={tuple(args[0].shape)}")
+              f"B,n,K={tuple(args[0].shape)} (tb={plan.tb}, v splits "
+              f"{plan.splits}, k chunks {plan.kchunks}, {plan.blocks} blocks)")
+    for B, n, K in ((1, N_NODES, P + 1), (4, 200, P + 1)):
+        for max_rounds in (50, 3):
+            args = [torch.from_numpy(a).cuda()
+                    for a in relaxation_state(B, n, K, 8)]
+            ws = tk.make_workspace(B, n, K, args[0].device)
+            fk = torch.tensor([0, 1, 0, max_rounds], dtype=torch.int32,
+                              device=args[0].device)
+            fp = fk.clone()
+            sk = sp = tuple(args[:3])
+            for step in range(12):
+                sk = tk.batched_superstep(*sk, *args[3:], flags=fk,
+                                          workspace=ws)
+                sp = tk.plain_superstep(*sp, *args[3:], flags=fp)
+                torch.cuda.synchronize()
+                assert_state_equal(sk, sp, f"superstep {step} of a sequence")
+                assert fk.tolist() == fp.tolist(), (step, fk, fp)
+            t, active = fk[:2].tolist()
+            assert active == 0 and (t == 3 if max_rounds == 3 else 3 < t < 12)
+            print(f"[{tag}] kernel == plain bitwise over 12 supersteps with "
+                  f"the control word: B,n,K={(B, n, K)}, max_rounds "
+                  f"{max_rounds}, stopped after {t} rounds")
+
+
+def host_issue_ms(fn, calls: int = 200) -> float:
+    """Host time to issue one call of ``fn``: the host clock around
+    ``calls`` calls with no synchronization in between."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def time_kernel(tk, tag, B, n, K, seed):
+    """The superstep kernel's device time at (B, n, K), launched as the
+    main path launches it (one workspace, the control word): the CUDA-graph
+    replay (no host issue gaps) beside CUDA events over back-to-back eager
+    calls, which equal device time only while a superstep outlasts its
+    host issue time.  Every call improves the same input state, so the
+    control word stays active throughout."""
+    from torch_kernel_cases import random_state
+
     dev = [torch.from_numpy(a).cuda()
            for a in random_state(B, n, K, seed, big_frac=0.6)]
-    ms = cuda_ms(lambda: tk.batched_superstep(*dev), 50)
+    ws = tk.make_workspace(B, n, K, dev[0].device)  # one per relaxation
+    flags = torch.tensor([0, 1, 0, 2**30], dtype=torch.int32,
+                         device=dev[0].device)
+    step = lambda: tk.batched_superstep(  # noqa: E731
+        *dev, flags=flags, workspace=ws)
+    eager_ms = cuda_ms(step, 50)
+    issue_ms = host_issue_ms(step)
+    ms = graph_ms(step)
     for _ in range(int(1000 / ms) + 1):  # ~1 s of queued supersteps
-        tk.batched_superstep(*dev)
+        step()
     loaded_mhz = sm_clock_mhz()[0]  # read while the card runs the kernel
     torch.cuda.synchronize()
+    assert flags[1].item() == 1, f"the control word went inactive: {flags}"
     plain_ms = cuda_ms(lambda: tk.batched_superstep_plain(*dev), 5)
-    got = tk.batched_superstep(*dev)
+    got = tk.batched_superstep(*dev, workspace=ws)
     want = tk.batched_superstep_plain(*dev)
     err = float((got[0] - want[0]).abs().max())
     candidates = B * n * n * K
@@ -192,14 +233,21 @@ def time_kernel(tk, tag, B, n, K, seed):
     bound_ops_ms = 1e3 * OPS_PER_CANDIDATE * candidates / ops_s
     bound_bytes_ms = 1e3 * nbytes / HBM_BYTES_S
     at_clock_ms = bound_ops_ms * 1980.0 / loaded_mhz
-    print(f"[{tag}] superstep B={B} n={n} K={K}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {max(bound_ops_ms, bound_bytes_ms):.4f}"
-          f" ms ({candidates:.3e} candidates x {OPS_PER_CANDIDATE} ops over "
-          f"{ops_s:.3e} lane-ops/s; bytes bound {bound_bytes_ms:.4f} ms); "
-          f"SM clock under this kernel {loaded_mhz:.0f} MHz, operations bound "
-          f"at that clock {at_clock_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                bound_ms=max(bound_ops_ms, bound_bytes_ms),
+    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    plan = ws.plan
+    print(f"[{tag}] superstep B={B} n={n} K={K} (one launch of {plan.blocks} "
+          f"blocks: tb={plan.tb}, v splits {plan.splits}, stages "
+          f"{plan.stages}): kernel {ms:.4f} ms (CUDA "
+          f"graph replays; back-to-back eager calls {eager_ms:.4f} ms; host "
+          f"issue {issue_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({candidates:.3e} candidates x "
+          f"{OPS_PER_CANDIDATE} ops over {ops_s:.3e} lane-ops/s = "
+          f"{bound_ops_ms:.4f} ms; bytes bound {bound_bytes_ms:.4f} ms); "
+          f"kernel / bound {ms / bound_ms:.2f}x; SM clock under this kernel "
+          f"{loaded_mhz:.0f} MHz, operations bound at that clock "
+          f"{at_clock_ms:.4f} ms")
+    return dict(ms=ms, eager_ms=eager_ms, issue_ms=issue_ms,
+                plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
                 bound_by="operations" if bound_ops_ms >= bound_bytes_ms
                 else "bytes", candidates=candidates)
 
@@ -602,6 +650,7 @@ def main() -> int:
         return 2
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(root / "tests"))  # the kernels' seeded test cases
     import repro_torch.core as T
     from repro_torch.core import leastcost as lc
     from repro_torch.core.graph import validate_mapping
@@ -635,10 +684,11 @@ def main() -> int:
 
     # -- phase 2: kernel == plain, bitwise --------------------------------
     check_kernel(tk, tag)
-    main_t = time_kernel(tk, tag, 64, N_NODES, P + 1, 11)
-    big_t = time_kernel(tk, tag, 8, 4096, P + 1, 12)
-    print(f"[{tag}] kernel / bound: {main_t['ms'] / main_t['bound_ms']:.2f}x "
-          f"(main shape), {big_t['ms'] / big_t['bound_ms']:.2f}x (n=4096)")
+    step_t = {B: time_kernel(tk, tag, B, N_NODES, P + 1, 10 + B)
+              for B in (1, MICRO_BATCH)}
+    main_t = step_t[MICRO_BATCH]
+    for B in (1, 8):
+        time_kernel(tk, tag, B, 4096, P + 1, 12 + B)
     check_minplus(tm, tag)
     check_place(tp, tag)
     mm_t = time_minplus(tm, tag, N_NODES, P + 1, 31)
@@ -664,9 +714,11 @@ def main() -> int:
     check_dispatch_async(T, rg, stream, tag)
     placer = make_placer(T, rg, None)
     tk.LAUNCHES = 0
+    tk.LAUNCHES_BY_B.clear()
     fallbacks[:] = [0, 0.0]
     out, run = drive(placer, stream, lc)
     launches = tk.LAUNCHES
+    by_b = dict(sorted(tk.LAUNCHES_BY_B.items()))
     fb_main = list(fallbacks)
     placer.check_invariants()
     for t in placer.tickets.values():
@@ -704,6 +756,15 @@ def main() -> int:
           f"{mean_rounds('cold'):.2f} {dict(sorted(st.supersteps['cold'].items()))}; "
           f"per warm solve {mean_rounds('warm'):.2f} "
           f"{dict(sorted(st.supersteps['warm'].items()))}")
+    assert sum(by_b.values()) == launches, (by_b, launches)
+    for B in by_b:
+        if B not in step_t:
+            step_t[B] = time_kernel(tk, tag, B, N_NODES, P + 1, 10 + B)
+    print(f"[{tag}] main path supersteps by batch B: {by_b}; kernel device ms"
+          f" at each B (n={N_NODES}, K={P + 1}): "
+          + ", ".join(f"B={B}: {step_t[B]['ms']:.4f}" for B in by_b)
+          + "; device ms the main path spent in the kernel "
+          f"{sum(c * step_t[B]['ms'] for B, c in by_b.items()):.2f}")
     print(f"[{tag}] admissions per second {st.admitted / run['wall_s']:.2f} "
           f"(wall {run['wall_s']:.2f} s); commit_admit p50 "
           f"{np.percentile(cm, 50):.2f} ms p95 {np.percentile(cm, 95):.2f} ms "
@@ -761,6 +822,10 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
+        "at_B": MICRO_BATCH,
+        "launches_by_B": by_b,
+        "B1": {k: step_t[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")},
     }, {
         "name": "masked_minplus",
         "route": "cuda",

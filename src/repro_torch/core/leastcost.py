@@ -27,6 +27,7 @@ round count equals the reference's ``lax.while_loop`` trip count exactly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -262,8 +263,12 @@ class _Relaxation:
         self.tensors = tensors
         self.max_rounds = int(max_rounds)
         self.enqueued = 0
-        self.step = (_batched.batched_superstep if impl == "cuda"
-                     else _batched.plain_superstep)
+        if impl == "cuda":  # one kernel workspace for every superstep
+            self.step = functools.partial(
+                _batched.batched_superstep,
+                workspace=_batched.make_workspace(B, n, K, dev))
+        else:
+            self.step = _batched.plain_superstep
         big = torch.full((B, 1), float(BIG), dtype=torch.float32, device=dev)
         # breq_k[b, k] = bandwidth of the dataflow edge carried when k nodes
         # are placed (edge (k-1, k)); k = 0 and k = p get BIG (no move)

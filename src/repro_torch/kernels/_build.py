@@ -12,12 +12,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 # src/repro_torch/kernels/_build.py -> checkout root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -102,6 +105,13 @@ def load(source: Path) -> KernelLibrary:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return KernelLibrary(lib, b)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``; the kernels'
+    launch plans size their grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_launch(lib: KernelLibrary, err: int, name: str) -> None:

@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 from ...core.problem import BIG
-from .._build import KernelLibrary, check_launch, check_tensor, load
+from .._build import KernelLibrary, check_launch, check_tensor, load, sm_count
 
 LAUNCHES = 0  # kernel launches (one per masked_minplus_cuda call)
 
@@ -43,11 +43,6 @@ def load_library() -> KernelLibrary:
     return kl
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def masked_minplus_cuda(P, lat, bw, breq_k):
     """Launch the kernel on CUDA tensors.  Returns ``(C (n_w, K), pv)``."""
     global LAUNCHES
@@ -63,7 +58,7 @@ def masked_minplus_cuda(P, lat, bw, breq_k):
     if max(n_v * n_w, n_v * K, n_w * K) >= 2**31:
         raise ValueError(f"block too large for the kernel: {(n_v, n_w, K)}")
     kl = load_library()
-    sms = _sm_count(dev.index if dev.index is not None
+    sms = sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
     splits = kl.lib.masked_minplus_splits(n_v, n_w, K, sms)
     C = torch.empty((n_w, K), dtype=torch.float32, device=dev)

@@ -15,7 +15,8 @@ from repro_torch.kernels.minplus.ops import _breq_k
 from repro_torch.kernels.place import place as tplace
 
 from torch_kernel_cases import (minplus_instance, place_instance,
-                                place_tie_instance, random_state, tie_state)
+                                place_tie_instance, random_state,
+                                relaxation_state, split_tie_state, tie_state)
 
 
 @pytest.fixture
@@ -42,6 +43,82 @@ def test_kernel_matches_plain_on_card(card, B, n, K, seed):
         got = tk.batched_superstep(*dev)
         assert tk.LAUNCHES == before + 1
         _equal(got, tk.batched_superstep_plain(*dev))
+
+
+def _superstep_equal(card, args, **kw):
+    dev = [torch.from_numpy(a).to(card) for a in args]
+    before = tk.LAUNCHES
+    got = tk.batched_superstep(*dev, **kw)
+    assert tk.LAUNCHES == before + 1
+    want = tk.batched_superstep_plain(*dev)
+    _equal(got, want)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,K,big_frac", [
+    (1, 1024, 9, 0.4), (1, 4096, 9, 0.4),  # the split-v path
+    (1, 1024, 9, 1.0), (64, 300, 9, 1.0),  # BIG + lat above BIG
+    (3, 50, 2, 0.4), (1, 1024, 2, 0.4),  # K = 2
+    (5, 130, 33, 0.4), (1, 1024, 33, 0.4),  # K above the template limit
+    (64, 1024, 9, 0.4),  # the micro-batch shape
+])
+def test_superstep_regimes_match_plain_on_card(card, B, n, K, big_frac):
+    ws = tk.make_workspace(B, n, K, card)
+    if B == 1 and n >= 1024:
+        assert ws.plan.splits > 1 and ws.plan.blocks >= 132, ws.plan
+    args = random_state(B, n, K, seed=B * 7 + n + K, big_frac=big_frac)
+    got = _superstep_equal(card, args, workspace=ws)
+    if big_frac == 1.0:  # no state can improve
+        assert torch.equal(got[0].cpu(), torch.from_numpy(args[0]))
+    assert ws.ticket.item() == 0  # left for the next launch
+
+
+@pytest.mark.gpu
+def test_superstep_smem_formula_matches_kernel(card):
+    lib = tk.load_library().lib
+    for kt in tk.KT_SIZES:
+        for tb in (1, 2, 4, 8, 16):
+            for K in (kt, 33):
+                for stages in range(tk.MIN_STAGES, tk.MAX_STAGES + 1):
+                    assert lib.batched_superstep_smem(kt, tb, K, stages) == \
+                        tk.smem_bytes(kt, tb, K, stages)
+
+
+@pytest.mark.gpu
+def test_superstep_first_v_wins_across_splits_on_card(card):
+    args, (first, second) = split_tie_state()
+    ws = tk.make_workspace(1, args[0].shape[1], args[0].shape[2], card)
+    assert first // ws.plan.v_chunk != second // ws.plan.v_chunk, ws.plan
+    Cn, pvn, _ = _superstep_equal(card, args, workspace=ws)
+    others = [w for w in range(args[0].shape[1]) if w not in (first, second)]
+    assert (Cn[0, others, 1:3] == 1.0).all()
+    assert (pvn[0, others, 1:3] == first).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,K", [(1, 1024, 9), (4, 200, 9), (3, 64, 5)])
+@pytest.mark.parametrize("max_rounds", [50, 3], ids=["fixpoint", "round_cap"])
+def test_superstep_flags_sequence_matches_plain_on_card(card, B, n, K,
+                                                        max_rounds):
+    """Twelve supersteps on one workspace with the device control word,
+    across the fixpoint (or the round cap): flags and state after every
+    step equal ``plain_superstep``'s."""
+    args = [torch.from_numpy(a).to(card) for a in relaxation_state(B, n, K, 8)]
+    ws = tk.make_workspace(B, n, K, card)
+    fk = torch.tensor([0, 1, 0, max_rounds], dtype=torch.int32, device=card)
+    fp = fk.clone()
+    sk = sp = tuple(args[:3])
+    stopped = False
+    for _ in range(12):
+        sk = tk.batched_superstep(*sk, *args[3:], flags=fk, workspace=ws)
+        sp = tk.plain_superstep(*sp, *args[3:], flags=fp)
+        _equal(sk, sp)
+        assert fk.tolist() == fp.tolist()
+        stopped |= fk[1].item() == 0
+    assert stopped
+    t = fk[0].item()
+    assert t == 3 if max_rounds == 3 else 3 < t < 12  # cap, or a fixpoint
 
 
 def _minplus_cases():

@@ -46,6 +46,40 @@ def tie_state(B=2, n=16, K=4):
     return [C, pv, pj, lat, bw, cap, prefix, breq_k]
 
 
+def split_tie_state(n=1024, K=4):
+    """One request whose only zero-cost states sit at two v far apart, in
+    different v splits of the kernel's B = 1 launch: every other column
+    reaches cost 1 from both, and the first of the two must win."""
+    B = 1
+    C = np.full((B, n, K), BIG, np.float32)
+    first, second = n // 3, 2 * n // 3 + 1
+    C[:, [first, second], :] = 0.0
+    pv = np.full((B, n, K), -1, np.int32)
+    pj = np.full((B, n, K), -1, np.int32)
+    lat = np.full((n, n), 1.0, np.float32)
+    np.fill_diagonal(lat, BIG)
+    bw = np.full((n, n), 100.0, np.float32)
+    cap = np.full((n,), 50.0, np.float32)
+    prefix = np.tile(np.arange(K, dtype=np.float32)[None, :], (B, 1)) * np.float32(0.1)
+    breq_k = np.concatenate([np.full((B, 1), BIG, np.float32),
+                             np.full((B, K - 2), 1.0, np.float32),
+                             np.full((B, 1), BIG, np.float32)], axis=1)
+    return [C, pv, pj, lat, bw, cap, prefix, breq_k], (first, second)
+
+
+def relaxation_state(B, n, K, seed):
+    """The DP's cold start on a random network: cost 0 at each request's
+    source with 0 nodes placed, BIG elsewhere, parents -1.  Every node can
+    take at least one dataflow node (cap >= 2 > any single creq)."""
+    C, pv, pj, lat, bw, cap, prefix, breq_k = random_state(B, n, K, seed)
+    cap = cap + np.float32(2.0)
+    src = np.random.default_rng(seed + 1).integers(0, n, size=B)
+    C = np.full((B, n, K), BIG, np.float32)
+    C[np.arange(B), src, 0] = 0.0
+    pv = np.full((B, n, K), -1, np.int32)
+    return [C, pv, pv.copy(), lat, bw, cap, prefix, breq_k]
+
+
 def minplus_instance(n, K, seed, inf_frac=0.4):
     """``tests/test_kernels.py``'s random instance, as numpy arrays."""
     rng = np.random.default_rng(seed)
