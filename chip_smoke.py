@@ -9,7 +9,14 @@ superstep in every launch regime its plan distinguishes (v split across a
 cluster or not, K chunked or not) and over twelve supersteps with its
 control word, using the seeded cases of ``tests/torch_kernel_cases.py``.
 It times the superstep at B = 1 and B = 64 (n = 1024) and at n = 4096, and
-after the main path at every batch size the main path launched.  Then it
+after the main path at every batch size the main path launched.  The two
+single-request kernels are held against their plain versions the same way
+(the move at the engine's rank blocks, unaligned widths, ties across
+cluster splits and all-BIG columns; the place with non-monotone prefixes,
+C above BIG and 2^20 rows in chunks) and timed beside an empty kernel built
+from ``src/repro_torch/kernels/csrc/empty.cu`` (the launch floor): the move
+at (1024, 1024) with warm and cold L2, at the D = 2 and 4 rank blocks and
+at (4096, 4096); the place at n = 1024, 4096 and 2^20 (K = 9 and 33).  Then it
 drives each path that runs a kernel, with that kernel's launch count reset
 just before and read just after:
 
@@ -33,6 +40,7 @@ power limit; and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -257,42 +265,8 @@ def time_kernel(tk, tag, B, n, K, seed):
 # ---------------------------------------------------------------------------
 
 BIG32 = np.float32(1e18)
-
-
-def minplus_instance(n_v, K, seed, n_w=None, inf_frac=0.4):
-    """P, lat, bw, breq_k like the reference's ``tests/test_kernels.py``."""
-    n_w = n_v if n_w is None else n_w
-    rng = np.random.default_rng(seed)
-    P = np.where(rng.random((n_v, K)) < inf_frac, BIG32,
-                 rng.random((n_v, K)) * 10).astype(np.float32)
-    lat = np.where(rng.random((n_v, n_w)) < 0.5, BIG32,
-                   rng.random((n_v, n_w)) * 5 + 0.1).astype(np.float32)
-    bw = (rng.random((n_v, n_w)) * 100).astype(np.float32)
-    breq_k = np.concatenate([[BIG32], rng.random(max(K - 2, 0)) * 80,
-                             [BIG32] * min(K - 1, 1)]).astype(np.float32)
-    return [P, lat, bw, breq_k]
-
-
-def place_instance(n, K, seed):
-    """C, cap, prefix like the reference's ``tests/test_place_kernel.py``."""
-    rng = np.random.default_rng(seed)
-    C = np.where(rng.random((n, K)) < 0.4, BIG32,
-                 rng.random((n, K)) * 10).astype(np.float32)
-    cap = (rng.random(n) * 8).astype(np.float32)
-    prefix = np.concatenate([[0.0], np.cumsum(rng.random(K - 1) * 3)])
-    return [C, cap, prefix.astype(np.float32)]
-
-
-def place_ties():
-    """Rows whose minimum several j share; row 3 has no feasible j."""
-    C = np.full((6, 5), BIG32, np.float32)
-    C[0] = 2.0
-    C[1] = [3.0, 1.0, 1.0, 4.0, 1.0]
-    C[2] = [BIG32, 0.0, BIG32, 0.0, 0.0]
-    C[4] = [5.0, 5.0, 0.5, 0.5, 7.0]
-    cap = np.asarray([10.0, 10.0, 1.0, -1.0, 0.6, 10.0], np.float32)
-    prefix = np.asarray([0.0, 0.5, 1.0, 1.5, 2.0], np.float32)
-    return [C, cap, prefix]
+L2_FLUSH_BYTES = 256 * 2**20  # written between calls for a cold L2 (50 MB)
+PLACE_CHUNK = 2**16  # rows per plain-version check at the throughput shapes
 
 
 def on_card(args):
@@ -309,11 +283,21 @@ def assert_same(got, want, what):
 
 
 def check_minplus(tm, tag):
-    """The masked min-plus kernel against its plain version, bitwise."""
-    cases = [(f"n={n} K={K}", minplus_instance(n, K, n * 1000 + K))
+    """The masked min-plus kernel against its plain version, bitwise: one
+    launch per call at every shape, the engine's rank blocks at D = 1, 2
+    and 4, unaligned widths, equal minima in different cluster splits and
+    columns whose candidates are all at or above BIG."""
+    from torch_kernel_cases import (minplus_big_columns, minplus_block,
+                                    minplus_split_tie)
+
+    cases = [(f"n={n} K={K}", minplus_block(n, n, K, n * 1000 + K))
              for n, K in [(8, 2), (17, 3), (50, 7), (128, 9), (130, 3),
                           (256, 33), (300, 17)]]
-    infeasible = minplus_instance(32, 4, 7)
+    cases += [(f"rank block n_v={N_NODES} n_w={w} K={K}",
+               minplus_block(N_NODES, w, K, w * 100 + K))
+              for w in (N_NODES, N_NODES // 2, N_NODES // 4, 17, 130, 300)
+              for K in (2, P + 1, 33)]
+    infeasible = minplus_block(32, 32, 4, 7)
     infeasible[3][:] = BIG32
     ties = [np.zeros((16, 3), np.float32), np.ones((16, 16), np.float32),
             np.full((16, 16), 100.0, np.float32),
@@ -321,20 +305,38 @@ def check_minplus(tm, tag):
     cases += [("all-infeasible columns", infeasible), ("first-v ties", ties)]
     for name, args in cases:
         dev = on_card(args)
+        before = tm.LAUNCHES
         got = tm.masked_minplus_cuda(*dev)
+        assert tm.LAUNCHES == before + 1, "more than one launch per call"
         assert_same(got, tm.masked_minplus_plain(*dev), name)
         if name == "all-infeasible columns":
             assert (got[0] == float(BIG32)).all() and (got[1] == 0).all()
         if name == "first-v ties":
             assert (got[1][:, 1:] == 0).all()
         print(f"[{tag}] masked_minplus kernel == plain bitwise: {name}")
+    for n_w, K in ((N_NODES, P + 1), (N_NODES // 4, P + 1), (130, 33)):
+        args, (first, second) = minplus_split_tie(N_NODES, n_w, K)
+        plan = tm._plan_on(torch.cuda.current_device(), N_NODES, n_w, K)
+        assert first // plan.v_chunk != second // plan.v_chunk, plan
+        got = tm.masked_minplus_cuda(*on_card(args))
+        assert_same(got, tm.masked_minplus_plain(*on_card(args)), "split ties")
+        assert (got[1] == first).all() and (got[0] == 1.0).all()
+        args, cols = minplus_big_columns(N_NODES, n_w, K, n_w + K)
+        got = tm.masked_minplus_cuda(*on_card(args))
+        assert_same(got, tm.masked_minplus_plain(*on_card(args)), "BIG columns")
+        c = torch.from_numpy(cols).cuda()
+        assert (got[0][c] == float(BIG32)).all() and (got[1][c] == 0).all()
+        print(f"[{tag}] masked_minplus kernel == plain bitwise: first v wins "
+              f"across {plan.splits} cluster splits (v {first} and {second}) "
+              f"and all-BIG columns give (BIG, 0), n_w={n_w} K={K}")
     # the engine's case: a rank's column block of the square problem
-    sq = on_card(minplus_instance(N_NODES, P + 1, 21))
+    sq = on_card(minplus_block(N_NODES, N_NODES, P + 1, 21))
     full = tm.masked_minplus_cuda(*sq)
     lo, hi = N_NODES // 2, N_NODES // 2 + N_NODES // 4
     cols = [sq[0], sq[1][:, lo:hi].contiguous(), sq[2][:, lo:hi].contiguous(),
             sq[3]]
     block = tm.masked_minplus_cuda(*cols)
+    assert_same(full, tm.masked_minplus_plain(*sq), "square (plain)")
     assert_same(block, (full[0][lo:hi], full[1][lo:hi]), "column block")
     assert_same(block, tm.masked_minplus_plain(*cols), "column block (plain)")
     print(f"[{tag}] masked_minplus kernel == plain bitwise: rectangular "
@@ -342,11 +344,35 @@ def check_minplus(tm, tag):
           f"square result")
 
 
+def place_chunks_equal(tp, args, what):
+    """The place kernel on the whole input against the plain version on
+    row chunks (the plain version's (v, k, j) block would not fit); returns
+    the largest value difference over the chunks."""
+    got = tp.place_window_cuda(*args)
+    C, cap, prefix = args
+    err = 0.0
+    for lo in range(0, C.shape[0], PLACE_CHUNK):
+        hi = lo + PLACE_CHUNK
+        want = tp.place_window_plain(C[lo:hi], cap[lo:hi], prefix)
+        assert_same((got[0][lo:hi], got[1][lo:hi]), want,
+                    f"{what} rows {lo}:{hi}")
+        err = max(err, float((got[0][lo:hi] - want[0]).abs().max()))
+    return err
+
+
 def check_place(tp, tag):
     """The capacity-window place kernel against its plain version."""
+    from torch_kernel_cases import (place_above_big, place_instance,
+                                    place_nonmonotone, place_tie_instance)
+
     cases = [(f"n={n} K={K}", place_instance(n, K, n + K))
              for n, K in [(10, 3), (64, 9), (130, 7), (256, 17), (300, 33)]]
-    cases.append(("first-j ties + a row with no feasible j", place_ties()))
+    cases += [(f"non-monotone prefix n={n} K={K}", place_nonmonotone(n, K, n))
+              for n, K in [(300, 9), (1000, 33), (64, 40)]]
+    cases += [(f"C above BIG n={n} K={K}", place_above_big(n, K, n))
+              for n, K in [(300, 9), (129, 33), (64, 40)]]
+    cases.append(("first-j ties + a row with no feasible j",
+                  place_tie_instance()))
     for name, args in cases:
         dev = on_card(args)
         got = tp.place_window_cuda(*dev)
@@ -356,46 +382,116 @@ def check_place(tp, tag):
             assert got[1][1].tolist() == [0, 1, 1, 1, 1]
             assert (got[0][3] == float(BIG32)).all() and (got[1][3] == 0).all()
         print(f"[{tag}] place_window kernel == plain bitwise: {name}")
+    for K in (P + 1, 33):
+        place_chunks_equal(tp, on_card(place_instance(2**20, K, K)),
+                           f"n=2^20 K={K}")
+        print(f"[{tag}] place_window kernel == plain bitwise: n=2^20 K={K} "
+              f"(plain version in chunks of {PLACE_CHUNK} rows)")
 
 
-def time_single(tag, name, kernel, plain, args, nbytes, ops):
-    """Kernel and plain device times (CUDA graph replays) and the card's
-    bound; also the eager per-call time, which the host's issue rate sets."""
+def empty_floor(root, tag):
+    """Device time of an empty kernel (one block, and one full wave of 264
+    blocks) in the CUDA-graph harness: the floor of any launch."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load(root / "src/repro_torch/kernels/csrc/empty.cu").lib
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    out = {}
+    for blocks in (1, 2 * SMS):
+        def launch():
+            err = lib.empty_launch(blocks,
+                                   torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+        out[blocks] = graph_ms(launch, calls=50)
+    print(f"[{tag}] empty kernel (launch floor): {out[1]:.5f} ms with 1 "
+          f"block, {out[2 * SMS]:.5f} ms with {2 * SMS} blocks (CUDA graph "
+          f"replays)")
+    return out[1]
+
+
+def cold_ms(fn, flush):
+    """Device time of ``fn`` with L2 cold: a graph of (flush, fn) minus a
+    graph of the flush alone, the flush writing ``L2_FLUSH_BYTES``."""
+    both = graph_ms(lambda: (flush.zero_(), fn()), calls=10, replays=10)
+    alone = graph_ms(flush.zero_, calls=10, replays=10)
+    return both - alone
+
+
+def time_single(tag, name, kernel, plain, args, nbytes, ops, floor_ms,
+                flush=None, check=None):
+    """Kernel device time (CUDA graph replays, warm L2: the engine reuses
+    its link columns across supersteps) and, with ``flush``, cold; the
+    plain version's (None skips its time) and the card's bound; also the
+    eager per-call time, which the host's issue rate sets.  The timed
+    inputs are held against the plain version: whole, or by ``check``
+    (which returns the largest value difference) where ``plain`` is None."""
     eager_ms = cuda_ms(lambda: kernel(*args), 200)
     ms = graph_ms(lambda: kernel(*args))
-    plain_ms = graph_ms(lambda: plain(*args), calls=5, replays=4)
-    got, want = kernel(*args), plain(*args)
-    assert_same(got, want, f"{name} timing inputs")
-    err = float((got[0] - want[0]).abs().max())
+    plain_ms = (None if plain is None else
+                graph_ms(lambda: plain(*args), calls=5, replays=4))
+    if plain is not None:
+        got, want = kernel(*args), plain(*args)
+        assert_same(got, want, f"{name} timing inputs")
+        err = float((got[0] - want[0]).abs().max())
+    else:
+        err = check(args)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_S
     ops_ms = 1e3 * ops / LANE_OPS_S
     out = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               shape=[list(a.shape) for a in args[:2]])
+    if flush is not None:
+        out["cold_ms"] = cold_ms(lambda: kernel(*args), flush)
     print(f"[{tag}] {name} {tuple(args[0].shape)} x {tuple(args[1].shape)}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (device time, CUDA "
-          f"graph replays); eager wrapper call {eager_ms:.4f} ms; bound "
-          f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({nbytes:.4g} bytes "
-          f"over {HBM_BYTES_S:.3g} B/s = {bytes_ms:.5f} ms; {ops:.4g} ops over "
-          f"{LANE_OPS_S:.4g} lane-ops/s = {ops_ms:.5f} ms); kernel / bound "
-          f"{ms / out['bound_ms']:.2f}x")
+          f"kernel {ms:.5f} ms"
+          + ("" if flush is None else f" (L2 cold {out['cold_ms']:.5f} ms)")
+          + (", plain not timed" if plain is None else
+             f", plain {plain_ms:.4f} ms")
+          + f" (device time, CUDA graph replays); eager wrapper call "
+          f"{eager_ms:.4f} ms; bound {out['bound_ms']:.5f} ms by "
+          f"{out['bound_by']} ({nbytes:.4g} bytes over {HBM_BYTES_S:.3g} B/s "
+          f"= {bytes_ms:.5f} ms; {ops:.4g} ops over {LANE_OPS_S:.4g} "
+          f"lane-ops/s = {ops_ms:.5f} ms); kernel / bound "
+          f"{ms / out['bound_ms']:.2f}x; kernel / empty-kernel floor "
+          f"{ms / floor_ms:.2f}x")
     return out
 
 
-def time_minplus(tm, tag, n, K, seed):
-    args = on_card(minplus_instance(n, K, seed))
-    nbytes = 4 * (2 * n * n + n * K + K) + 8 * n * K
-    ops = OPS_PER_CANDIDATE * n * n * K
+def minplus_cost(n_v, n_w, K):
+    """Bytes (each input read once, each output written once) and
+    operations of one move call."""
+    return (4 * (2 * n_v * n_w + n_v * K + K) + 8 * n_w * K,
+            OPS_PER_CANDIDATE * n_v * n_w * K)
+
+
+def place_cost(n, K):
+    """Bytes and operations of one place call: the candidates j <= k."""
+    return n * K * 12 + n * 4 + K * 4, OPS_PER_CANDIDATE * n * K * (K + 1) // 2
+
+
+def time_minplus(tm, tag, n_v, n_w, K, seed, floor_ms, flush=None):
+    from torch_kernel_cases import minplus_block
+
+    args = on_card(minplus_block(n_v, n_w, K, seed))
     return time_single(tag, "masked_minplus", tm.masked_minplus_cuda,
-                       tm.masked_minplus_plain, args, nbytes, ops)
+                       tm.masked_minplus_plain, args,
+                       *minplus_cost(n_v, n_w, K), floor_ms, flush)
 
 
-def time_place(tp, tag, n, K, seed):
+def time_place(tp, tag, n, K, seed, floor_ms):
+    from torch_kernel_cases import place_instance
+
     args = on_card(place_instance(n, K, seed))
-    nbytes = n * K * 12 + n * 4 + K * 4
-    ops = OPS_PER_CANDIDATE * n * K * K  # subtract, compare, select, min
-    return time_single(tag, "place_window", tp.place_window_cuda,
-                       tp.place_window_plain, args, nbytes, ops)
+    if n <= 4096:
+        return time_single(tag, "place_window", tp.place_window_cuda,
+                           tp.place_window_plain, args, *place_cost(n, K),
+                           floor_ms)
+    return time_single(
+        tag, "place_window", tp.place_window_cuda, None, args,
+        *place_cost(n, K), floor_ms,
+        check=lambda a: place_chunks_equal(tp, a, f"n={n} K={K} timing inputs"))
 
 
 def distinct_requests(stream, count):
@@ -513,6 +609,7 @@ def place_op_phase(tp, rg, dfs, tag):
     network's capacities, with a seeded frontier."""
     from repro_torch.core.problem import creq_prefix
     from repro_torch.kernels.place import place_window
+    from torch_kernel_cases import place_instance
 
     cap = torch.from_numpy(rg.cap.astype(np.float32)).cuda()
     inputs = []
@@ -669,7 +766,8 @@ def main() -> int:
 
     # -- phase 1: build every kernel, one nvcc per source, in parallel ----
     t0 = time.perf_counter()
-    builds = _build.build_all([tk.SOURCE, tm.SOURCE, tp.SOURCE])
+    builds = _build.build_all([tk.SOURCE, tm.SOURCE, tp.SOURCE,
+                               root / "src/repro_torch/kernels/csrc/empty.cu"])
     wall = time.perf_counter() - t0
     for b in builds:
         usage = [ln.strip() for ln in b.log.splitlines()
@@ -691,10 +789,18 @@ def main() -> int:
         time_kernel(tk, tag, B, 4096, P + 1, 12 + B)
     check_minplus(tm, tag)
     check_place(tp, tag)
-    mm_t = time_minplus(tm, tag, N_NODES, P + 1, 31)
-    time_minplus(tm, tag, 4096, P + 1, 32)
-    pw_t = time_place(tp, tag, N_NODES, P + 1, 33)
-    time_place(tp, tag, 4096, P + 1, 34)
+    floor_ms = empty_floor(root, tag)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    K = P + 1
+    mm_t = time_minplus(tm, tag, N_NODES, N_NODES, K, 31, floor_ms, flush)
+    mm_more = [time_minplus(tm, tag, N_NODES, N_NODES // D, K, 31 + D,
+                            floor_ms) for D in (2, 4)]
+    mm_more.append(time_minplus(tm, tag, 4096, 4096, K, 32, floor_ms, flush))
+    del flush
+    pw_t = time_place(tp, tag, N_NODES, K, 33, floor_ms)
+    pw_more = [time_place(tp, tag, n, k, 34 + k, floor_ms)
+               for n, k in ((4096, K), (2**20, K), (2**20, 33))]
 
     # -- phase 3: the main path at real size -------------------------------
     rg = T.waxman(N_NODES, seed=SEED)
@@ -838,6 +944,9 @@ def main() -> int:
         "bound_ms": mm_t["bound_ms"],
         "bound_by": mm_t["bound_by"],
         "library_ms": None,
+        "cold_ms": mm_t["cold_ms"],
+        "empty_kernel_ms": floor_ms,
+        "other_shapes": mm_more,
     }, {
         "name": "place_window",
         "route": "cuda",
@@ -850,6 +959,8 @@ def main() -> int:
         "bound_ms": pw_t["bound_ms"],
         "bound_by": pw_t["bound_by"],
         "library_ms": None,
+        "empty_kernel_ms": floor_ms,
+        "other_shapes": pw_more,
     }]}))
     print(tag)
     print(json.dumps({"ok": True, "device": {

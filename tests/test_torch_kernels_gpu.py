@@ -14,9 +14,12 @@ from repro_torch.kernels.minplus import minplus as tmp
 from repro_torch.kernels.minplus.ops import _breq_k
 from repro_torch.kernels.place import place as tplace
 
-from torch_kernel_cases import (minplus_instance, place_instance,
-                                place_tie_instance, random_state,
-                                relaxation_state, split_tie_state, tie_state)
+from torch_kernel_cases import (minplus_big_columns, minplus_block,
+                                minplus_instance, minplus_split_tie,
+                                place_above_big, place_instance,
+                                place_nonmonotone, place_tie_instance,
+                                random_state, relaxation_state,
+                                split_tie_state, tie_state)
 
 
 @pytest.fixture
@@ -158,3 +161,82 @@ def test_place_window_kernel_matches_plain_on_card(card, n, K):
         got = tplace.place_window_cuda(C, cap, prefix)
         assert tplace.LAUNCHES == before + 1
         _equal(got, tplace.place_window_plain(C, cap, prefix))
+
+
+def _move_equal(card, args):
+    dev = [torch.from_numpy(a).to(card) for a in args]
+    before = tmp.LAUNCHES
+    got = tmp.masked_minplus_cuda(*dev)
+    assert tmp.LAUNCHES == before + 1  # one launch per call, any shape
+    _equal(got, tmp.masked_minplus_plain(*dev))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [2, 9, 33])
+@pytest.mark.parametrize("n_w", [1024, 512, 256, 17, 130, 300])
+def test_masked_minplus_rank_blocks_match_plain_on_card(card, n_w, K):
+    """The engine's rank blocks (n_w = n / D) and unaligned widths, which
+    take the kernel's 4-byte copies."""
+    _move_equal(card, minplus_block(1024, n_w, K, seed=n_w * 100 + K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_w,K", [(1024, 9), (256, 9), (130, 33)])
+def test_masked_minplus_first_v_wins_across_splits_on_card(card, n_w, K):
+    args, (first, second) = minplus_split_tie(1024, n_w, K)
+    index = torch.device(card).index or 0
+    plan = tmp._plan_on(index, 1024, n_w, K)
+    assert plan.splits > 1 and first // plan.v_chunk != second // plan.v_chunk
+    C, pv = _move_equal(card, args)
+    assert (C == 1.0).all() and (pv == first).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_w,K", [(1024, 9), (300, 2), (256, 33)])
+def test_masked_minplus_big_columns_on_card(card, n_w, K):
+    args, cols = minplus_big_columns(1024, n_w, K, seed=n_w + K)
+    C, pv = _move_equal(card, args)
+    cols = torch.from_numpy(cols).to(card)
+    assert (C[cols] == float(BIG)).all() and (pv[cols] == 0).all()
+
+
+def _place_equal(card, args):
+    C, cap, prefix = (torch.from_numpy(a).to(card) for a in args)
+    before = tplace.LAUNCHES
+    got = tplace.place_window_cuda(C, cap, prefix)
+    assert tplace.LAUNCHES == before + 1
+    _equal(got, tplace.place_window_plain(C, cap, prefix))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,K", [(300, 9), (1000, 33), (129, 17), (64, 40)])
+def test_place_window_nonmonotone_and_above_big_on_card(card, n, K):
+    """A prefix that is not monotone, and C above BIG (the kernel's exact
+    rescan); K = 40 takes the one-thread-per-(v, k) kernel."""
+    _place_equal(card, place_nonmonotone(n, K, seed=n + K))
+    _place_equal(card, place_above_big(n, K, seed=n * K))
+
+
+@pytest.mark.gpu
+def test_place_window_ties_and_infeasible_rows_on_card(card):
+    P, pj = _place_equal(card, place_tie_instance())
+    assert pj[0].tolist() == [0] * 5 and pj[1].tolist() == [0, 1, 1, 1, 1]
+    assert (P[3] == float(BIG)).all() and (pj[3] == 0).all()
+
+
+@pytest.mark.gpu
+def test_place_window_large_slice_on_card(card):
+    """A 2^16-row slice of the throughput shape at K = 33."""
+    _place_equal(card, place_instance(2**16, 33, seed=16))
+
+
+@pytest.mark.gpu
+def test_move_smem_formula_matches_kernel(card):
+    lib = tmp.load_library().lib
+    for kt in range(1, tmp.MAX_KT + 1):
+        for w_tile in tmp.W_TILES:
+            for stages in range(tmp.MIN_STAGES, tmp.MAX_STAGES + 1):
+                assert lib.masked_minplus_smem(kt, w_tile, stages) == \
+                    tmp.smem_bytes(kt, w_tile, stages)

@@ -114,3 +114,66 @@ def place_tie_instance():
     cap = np.asarray([10.0, 10.0, 1.0, -1.0, 0.6, 10.0], np.float32)
     prefix = np.asarray([0.0, 0.5, 1.0, 1.5, 2.0], np.float32)
     return C, cap, prefix
+
+
+def _breq_thresholds(rng, K):
+    """k-indexed bandwidth thresholds as the op builds them: BIG at k = 0
+    and at k = K - 1, random in between."""
+    mid = (rng.random(max(K - 2, 0)) * 80).astype(np.float32)
+    ends = [np.full(1, BIG, np.float32)] * (1 if K == 1 else 2)
+    return np.concatenate([ends[0], mid, *ends[1:]]).astype(np.float32)
+
+
+def minplus_block(n_v, n_w, K, seed, inf_frac=0.4):
+    """The move kernel's rectangular inputs (P, lat, bw, breq_k): a rank's
+    link columns, with the k-indexed thresholds."""
+    rng = np.random.default_rng(seed)
+    P = np.where(rng.random((n_v, K)) < inf_frac, BIG,
+                 rng.random((n_v, K)) * 10).astype(np.float32)
+    lat = np.where(rng.random((n_v, n_w)) < 0.5, BIG,
+                   rng.random((n_v, n_w)) * 5 + 0.1).astype(np.float32)
+    bw = (rng.random((n_v, n_w)) * 100).astype(np.float32)
+    return [P, lat, bw, _breq_thresholds(rng, K)]
+
+
+def minplus_split_tie(n_v, n_w, K):
+    """Cost 0 only at two v far apart (in different v splits of the move's
+    launch); every column reaches cost 1 from both, the first must win."""
+    first, second = n_v // 3, 2 * n_v // 3 + 1
+    P = np.full((n_v, K), BIG, np.float32)
+    P[[first, second]] = 0.0
+    lat = np.ones((n_v, n_w), np.float32)
+    bw = np.full((n_v, n_w), 100.0, np.float32)
+    breq_k = np.ones((K,), np.float32)
+    return [P, lat, bw, breq_k], (first, second)
+
+
+def minplus_big_columns(n_v, n_w, K, seed):
+    """P = BIG on most rows and lat = BIG on every feasible link of a third
+    of the columns: there every candidate is at or above BIG (P + BIG rounds
+    to BIG, BIG + BIG is 2e18), so those columns must give (BIG, 0)."""
+    P, lat, bw, breq_k = minplus_block(n_v, n_w, K, seed, inf_frac=0.8)
+    cols = np.arange(0, n_w, 3)
+    lat[:, cols] = BIG
+    return [P, lat, bw, breq_k], cols
+
+
+def place_nonmonotone(n, K, seed):
+    """A capacity window whose prefix is not monotone (signed steps), so
+    feasibility is not a suffix of j."""
+    C, cap, _ = place_instance(n, K, seed)
+    rng = np.random.default_rng(seed + 1)
+    prefix = np.concatenate([[0.0], np.cumsum(rng.random(K - 1) * 6 - 3)])
+    return C, cap, prefix.astype(np.float32)
+
+
+def place_above_big(n, K, seed):
+    """C entries above BIG (inf and 2e18) beside BIG and finite ones: the
+    reference's min over the whole candidate row (BIG where infeasible or
+    j > k) decides which j wins."""
+    C, cap, prefix = place_instance(n, K, seed)
+    rng = np.random.default_rng(seed + 2)
+    r = rng.random((n, K))
+    C = np.where(r < 0.2, np.float32(np.inf),
+                 np.where(r < 0.4, np.float32(2e18), C)).astype(np.float32)
+    return C, cap, prefix
