@@ -29,8 +29,21 @@ just before and read just after:
   against its plain rerun and ``leastcost_torch``;
 - the op ``place_window`` (the capacity-window place kernel) on the same
   requests' capacity windows;
-
-and finally runs every registered backend on the paper's worked example.
+- every registered backend on the paper's worked example;
+- the centralized multi-tenant ``ControlPlane`` on the same network (the
+  superstep kernel): four weighted tenants submit 192 requests in all three
+  preemption classes over eight pump rounds (micro-batch 64, pipeline depth
+  2), with releases, one defrag, one node failed and restored, and a hot
+  spot whose class-2 requests must preempt class-0 ones; replayed with
+  ``kernel_impl="plain"``, which must return the same rids, tickets,
+  ledger and fairness summary;
+- the regional (R = 64) and 2-level hierarchical planes on
+  ``region_tree(3, 4, 64)`` (n = 4096 in 64 leaves of 64 nodes) replaying
+  ``benchmarks/bench_trace.py``'s seeded trace (36 rounds, 12 of warm-up),
+  each through the kernel at the region-local n_r = 64 and replayed through
+  the plain version, which must end in the same rids, active set, ledger
+  and coordination counts; the superstep is then timed at n_r = 64 at
+  every batch size the trace launched.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -248,12 +261,12 @@ def time_kernel(tk, tag, B, n, K, seed):
           f"{plan.stages}): kernel {ms:.4f} ms (CUDA "
           f"graph replays; back-to-back eager calls {eager_ms:.4f} ms; host "
           f"issue {issue_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({candidates:.3e} candidates x "
+          f"{bound_ms:.4g} ms ({candidates:.3e} candidates x "
           f"{OPS_PER_CANDIDATE} ops over {ops_s:.3e} lane-ops/s = "
-          f"{bound_ops_ms:.4f} ms; bytes bound {bound_bytes_ms:.4f} ms); "
+          f"{bound_ops_ms:.4g} ms; bytes bound {bound_bytes_ms:.4g} ms); "
           f"kernel / bound {ms / bound_ms:.2f}x; SM clock under this kernel "
           f"{loaded_mhz:.0f} MHz, operations bound at that clock "
-          f"{at_clock_ms:.4f} ms")
+          f"{at_clock_ms:.4g} ms")
     return dict(ms=ms, eager_ms=eager_ms, issue_ms=issue_ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
                 bound_by="operations" if bound_ops_ms >= bound_bytes_ms
@@ -647,6 +660,29 @@ def paper_phase(T, tag):
             (method, costs[method])
 
 
+class DeviceWaits:
+    """Host seconds spent waiting on the device in ``_Relaxation.finish``
+    (the only place the admission path blocks on a solve) while inside."""
+
+    def __init__(self, lc):
+        self.lc, self.s = lc, 0.0
+
+    def __enter__(self):
+        self.inner = inner = self.lc._Relaxation.finish
+
+        def timed(relax):
+            t0 = time.perf_counter()
+            try:
+                return inner(relax)
+            finally:
+                self.s += time.perf_counter() - t0
+
+        self.lc._Relaxation.finish = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.lc._Relaxation.finish = self.inner
+
 
 def make_stream(T, rg):
     pool = [T.random_dataflow(rg, P, seed=SEED + 1 + i) for i in range(POOL)]
@@ -669,7 +705,7 @@ def drive(placer, stream, lc_module):
 
     pipe = AdmissionPipeline(placer, depth=2)
     rng = np.random.default_rng(SEED + 7)
-    commit_ms, out, waits = [], [], [0.0]
+    commit_ms, out = [], []
     inner_commit = placer.commit_admit
 
     def timed_commit(pending):
@@ -679,20 +715,11 @@ def drive(placer, stream, lc_module):
         return r
 
     placer.commit_admit = timed_commit
-    inner_finish = lc_module._Relaxation.finish
-
-    def timed_finish(self):
-        t0 = time.perf_counter()
-        r = inner_finish(self)
-        waits[0] += time.perf_counter() - t0
-        return r
-
-    lc_module._Relaxation.finish = timed_finish
     failed = None
     batches = [stream[i:i + MICRO_BATCH]
                for i in range(0, len(stream), MICRO_BATCH)]
     t0 = time.perf_counter()
-    try:
+    with DeviceWaits(lc_module) as waits:
         for bi, batch in enumerate(batches):
             for _, tickets in pipe.push(batch):
                 out.extend(tickets)
@@ -713,11 +740,9 @@ def drive(placer, stream, lc_module):
             out.extend(tickets)
         if placer.device.type == "cuda":
             torch.cuda.synchronize()
-    finally:
-        lc_module._Relaxation.finish = inner_finish
     wall = time.perf_counter() - t0
-    return out, dict(wall_s=wall, commit_ms=commit_ms,
-                             wait_s=waits[0], failed_node=failed)
+    return out, dict(wall_s=wall, commit_ms=commit_ms, wait_s=waits.s,
+                     failed_node=failed)
 
 
 def check_dispatch_async(T, rg, stream, tag):
@@ -738,6 +763,338 @@ def check_dispatch_async(T, rg, stream, tag):
     placer.commit_admit(pending)
     print(f"[{tag}] dispatch_admit of {MICRO_BATCH} requests returned in "
           f"{ms:.2f} ms with no host-device synchronization")
+
+
+# ---------------------------------------------------------------------------
+# The control planes: centralized (phase 8), regional and hierarchical
+# (phase 9)
+# ---------------------------------------------------------------------------
+
+PLANE_TENANTS = (("svc-a", 4.0), ("svc-b", 2.0), ("batch", 1.0),
+                 ("edge", 0.5))
+PLANE_ROUNDS = 8  # pump rounds of phase 8
+PLANE_PER_ROUND = 24  # submits per round: 192 requests
+TRACE_TENANTS = ("svc-a", "svc-b", "batch", "edge")
+TRACE_ROUNDS, TRACE_WARMUP, TRACE_RATE = 36, 12, 12.0
+
+
+def canon(x):
+    """A comparable form of what a plane returns (tickets, spanning
+    tickets, requests, ledgers): dataclasses by name and fields, arrays as
+    lists, floats exact."""
+    import dataclasses
+    from types import MappingProxyType
+
+    if x is None or isinstance(x, (bool, str)):
+        return x
+    if isinstance(x, (int, np.integer)):
+        return int(x)
+    if isinstance(x, (float, np.floating)):
+        return float(x)
+    if isinstance(x, np.ndarray):
+        return (str(x.dtype), x.tolist())
+    if isinstance(x, (dict, MappingProxyType)):
+        return sorted((canon(k), canon(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return [canon(v) for v in x]
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__, [(f.name, canon(getattr(x, f.name)))
+                                   for f in dataclasses.fields(x)])
+    raise TypeError(f"no canonical form for {type(x).__name__}")
+
+
+def impl_cfg(kernel_impl):
+    return {} if kernel_impl is None else {"kernel_impl": kernel_impl}
+
+
+def hot_requests(T, rg, count):
+    """``count`` equal requests between two nodes, out of the node with the
+    fewest links, each hop needing 0.9 of that node's widest link: the few
+    links that can carry one fill up, so later arrivals are rejected unless
+    they may preempt (and fit where a preempted one was)."""
+    deg = (rg.bw > 0).sum(1)
+    src = int(np.argmin(np.where(deg > 0, deg, rg.n)))
+    dst = (src + rg.n // 2) % rg.n
+    breq = np.full(3, np.float32(0.9) * rg.bw[src].max(), np.float32)
+    creq = np.asarray([0.0, 0.5, 0.5, 0.0], np.float32)
+    return [T.DataflowPath(creq, breq, src, dst) for _ in range(count)]
+
+
+def plane_script(T, TS, rg, pool, kernel_impl, device="cuda",
+                 rounds=PLANE_ROUNDS, per_round=PLANE_PER_ROUND, hot=6):
+    """Phase 8: four weighted tenants submit requests of classes 1 and 2
+    to the centralized plane over ``rounds`` pump rounds, with releases,
+    one defrag and one node failed and restored; and a hot spot: first
+    ``hot`` class-0 requests out of one thin node, held to the end, then
+    ``hot`` class-2 ones that can enter only by preempting them.  Returns
+    the plane and every outcome in comparable form."""
+    cp = TS.ControlPlane(rg, device=device, micro_batch=MICRO_BATCH,
+                         pipeline_depth=2, preempt=True,
+                         **impl_cfg(kernel_impl))
+    for name, weight in PLANE_TENANTS:
+        cp.register_tenant(name, weight=weight)
+    rng = np.random.default_rng(SEED + 8)
+    hot_dfs = hot_requests(T, rg, 2 * hot)
+    out, failed, held = [], None, set()
+    for r in range(rounds):
+        # the hot spot's class-0 flows arrive first and are held to the end
+        burst = {0: ("svc-a", 0), rounds - 2: ("svc-b", 2)}.get(r)
+        for i in range(per_round):
+            if burst is not None and i < hot:
+                tenant, klass = burst
+                df = hot_dfs[i + (hot if klass else 0)]
+            else:
+                tenant = PLANE_TENANTS[int(rng.integers(len(PLANE_TENANTS)))][0]
+                df = pool[int(rng.integers(len(pool)))]
+                klass = 1 + int(rng.integers(2))  # class 0 is the hot spot's
+            rid = cp.submit(tenant, df, klass=klass)
+            out.append(("rid", rid))
+            if burst is not None and i < hot and klass == 0:
+                held.add(rid)
+        out.append(("pump", canon(cp.pump(rounds=1))))
+        for rid in cp.active_ids():
+            if rng.random() < RELEASE_P / 2 and rid not in held:
+                cp.release(rid)
+        if r == rounds // 2 - 1:
+            out.append(("defrag", canon(cp.defrag())))
+        if r == rounds // 2:
+            use = {}
+            for t in cp.placer.tickets.values():
+                for v in t.mapping.route[1:-1]:
+                    use[v] = use.get(v, 0) + 1
+            failed = max(sorted(use), key=use.get)
+            out.append(("fail", canon(cp.fail_node(failed))))
+        if r == rounds // 2 + 2:
+            cp.restore_node(failed)
+        cp.check_invariants()
+    out.append(("pump", canon(cp.pump(rounds=2))))
+    out.append(("flush", canon(cp.flush())))
+    cp.check_invariants()
+    return cp, out
+
+
+def plane_phase(T, TS, lc, tk, rg, pool, tag, *, device="cuda", **script):
+    """Phase 8 through the kernel, counted, then its plain replay.
+    ``device="cpu"`` rehearses it without a card (both runs plain)."""
+    launches = {}
+    runs = {}
+    for impl in (None, "plain"):
+        t0 = time.perf_counter()
+        tk.LAUNCHES = 0
+        tk.LAUNCHES_BY_B.clear()
+        with DeviceWaits(lc) as waits:
+            cp, out = plane_script(T, TS, rg, pool, impl, device, **script)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[impl] = (cp, out, time.perf_counter() - t0, waits.s)
+        launches[impl] = (tk.LAUNCHES, dict(sorted(tk.LAUNCHES_BY_B.items())))
+    (cp, out, wall, wait_s), (cpp, outp, wall_p, _) = runs[None], runs["plain"]
+    if device == "cuda":
+        assert launches[None][0] > 0, "the control plane launched no kernel"
+        assert set(cp.placer.stats.kernel_impls) == {"cuda"}
+        assert cp.placer.stats.preempted > 0, "the hot spot preempted nothing"
+    assert launches["plain"][0] == 0, "the plain replay launched the kernel"
+    assert set(cpp.placer.stats.kernel_impls) == {"plain"}
+    assert out == outp, "the plain replay returned other outcomes"
+    led = cp.conservation()
+    assert led == cpp.conservation() and led["ok"] and led["in_flight"] == 0
+
+    def fairness(c):
+        rep = c.fairness_report()
+        rep.pop("timing")
+        return canon(rep)
+
+    assert fairness(cp) == fairness(cpp)
+    assert canon(cp.placer.tickets) == canon(cpp.placer.tickets)
+    assert np.array_equal(cp.placer.cap, cpp.placer.cap)
+    assert np.array_equal(cp.placer.bw, cpp.placer.bw)
+    st = cp.placer.stats
+    print(f"[{tag}] control plane (centralized, n={rg.n}, micro-batch "
+          f"{MICRO_BATCH}, pipeline depth 2, preemption on): "
+          f"{len([o for o in out if o[0] == 'rid'])} requests from "
+          f"{len(PLANE_TENANTS)} tenants; ledger {led}; admitted "
+          f"{st.admitted} rejected {st.rejected} preempted {st.preempted} "
+          f"remapped {st.remapped} dropped {st.dropped} defrag "
+          f"{st.defrag_rounds}/{st.defrag_commits} stale batches "
+          f"{st.stale_batches} cache hits {st.cache_hits}; {st.solves} solves "
+          f"taking {st.solve_ms / 1e3:.2f} s, host validate/commit "
+          f"{st.overhead_ms / 1e3:.2f} s; kernel launches "
+          f"{launches[None][0]} by B {launches[None][1]}; wall {wall:.2f} s, "
+          f"host waited on the device {wait_s:.2f} s (host share "
+          f"{1 - wait_s / wall:.4f}); plain replay identical (rids, tickets, "
+          f"ledger, fairness summary, residuals; wall {wall_p:.2f} s)")
+    return launches[None][0], dict(wall_s=wall, wait_s=wait_s)
+
+
+def build_trace(T, n, assign, block, *, rounds, warmup, base_rate,
+                hold_mean=8.0, churn_period=12, churn_down=3, seed=0):
+    """``benchmarks/bench_trace.py``'s seeded trace (that module imports the
+    JAX package): Pareto-modulated Poisson arrivals on a diurnal sinusoid,
+    80/15/5 leaf/block/anywhere endpoints, exponential holds, and
+    correlated leaf churn."""
+    rng = np.random.default_rng(seed)
+    leaves = int(assign.max()) + 1
+    k = n // leaves
+    events, churn = [], []
+    for t in range(rounds):
+        diurnal = 1.0 + 0.6 * np.sin(2.0 * np.pi * t / 24.0)
+        burst = min(1.0 + float(rng.pareto(2.5)), 8.0)
+        for _ in range(int(rng.poisson(base_rate * diurnal * burst))):
+            tenant = TRACE_TENANTS[int(rng.integers(len(TRACE_TENANTS)))]
+            leaf = int(rng.integers(leaves))
+            src = leaf * k + int(rng.integers(k))
+            u = float(rng.random())
+            if u < 0.80:
+                dleaf = leaf
+            elif u < 0.95:
+                dleaf = (leaf // block) * block + int(rng.integers(block))
+            else:
+                dleaf = int(rng.integers(leaves))
+            dst = dleaf * k + int(rng.integers(k))
+            if dst == src:
+                dst = dleaf * k + (src - dleaf * k + 1) % k
+            p = int(rng.integers(3, 6))
+            creq = rng.uniform(0.3, 1.5, size=p).astype(np.float32)
+            creq[0] = creq[-1] = 0.0
+            breq = rng.uniform(4.0, 18.0, size=p - 1).astype(np.float32)
+            events.append({
+                "round": t, "tenant": tenant,
+                "df": T.DataflowPath(creq, breq, src, dst),
+                "hold": max(1, int(rng.exponential(hold_mean))),
+                "klass": int(rng.integers(3)),
+            })
+        if t >= warmup and t % churn_period == 0:
+            leaf = int(rng.integers(leaves))
+            down = [leaf * k + i for i in range(max(1, k // 4))]
+            churn.append((t, "fail", down))
+            if t + churn_down < rounds:
+                churn.append((t + churn_down, "restore", down))
+    return events, churn
+
+
+def replay(cp, events, churn, *, rounds, warmup):
+    """``benchmarks/bench_trace.py``'s replay: per round, churn, submits,
+    one pump, admissions noted, expired holds released.  Returns the
+    plane's numbers and its final state in comparable form."""
+    for t in TRACE_TENANTS:
+        cp.register_tenant(t, weight=1.0)
+    by_round, churn_by_round = {}, {}
+    for ev in events:
+        by_round.setdefault(ev["round"], []).append(ev)
+    for r, kind, nodes in churn:
+        churn_by_round.setdefault(r, []).append((kind, nodes))
+    pending, rids = {}, []
+    steady_sub = steady_adm = 0
+    latencies = []
+    for t in range(rounds):
+        for kind, nodes in churn_by_round.get(t, []):
+            for v in nodes:
+                cp.fail_node(v) if kind == "fail" else cp.restore_node(v)
+        for ev in by_round.get(t, []):
+            rid = cp.submit(ev["tenant"], ev["df"], klass=ev["klass"])
+            rids.append(rid)
+            pending[rid] = {"sub": t, "expiry": t + ev["hold"], "adm": None}
+            steady_sub += t >= warmup
+        cp.pump(rounds=1)
+        active = set(cp.active_ids())
+        for rid, info in pending.items():
+            if info["adm"] is None and rid in active:
+                info["adm"] = t
+                if info["sub"] >= warmup:
+                    steady_adm += 1
+                    latencies.append(t - info["sub"])
+        for rid in [r for r, i in pending.items()
+                    if i["expiry"] <= t and r in active]:
+            cp.release(rid)
+            del pending[rid]
+    cp.check_invariants()
+    led = cp.conservation()
+    cr = cp.coordination_report()
+    if "children" in cr:
+        msgs = cr["gossip_messages_total"] + cr["twopc_messages_total"]
+    else:
+        msgs = cr["gossip_messages"] + cr["twopc_messages"]
+    reg = cp.metrics_registry()
+    lat = np.asarray(latencies, np.float64)
+    numbers = {
+        "admission_rate": steady_adm / max(steady_sub, 1),
+        "steady_submitted": steady_sub,
+        "p50_admit_rounds": float(np.percentile(lat, 50)) if lat.size else -1,
+        "p99_admit_rounds": float(np.percentile(lat, 99)) if lat.size else -1,
+        "max_component_state":
+            cp.resident_state_report()["max_component_state"],
+        "max_solve_n": cp.solve_size_report()["max_solve_n"],
+        "messages_per_round": msgs / rounds,
+        "cache_hits": int(reg.total("placer.cache_hits")),
+        "dropped": led["dropped"],
+        "solves": int(reg.total("placer.solves")),
+        "solve_s": reg.total("timing.solve_ms") / 1e3,
+        "overhead_s": reg.total("timing.overhead_ms") / 1e3,
+    }
+    state = canon([rids, cp.active_ids(), led, cr])
+    return numbers, state
+
+
+def trace_phase(T, TS, lc, tk, tag, *, levels=3, branching=4, k=64,
+                rounds=TRACE_ROUNDS, warmup=TRACE_WARMUP, device="cuda"):
+    """Phase 9: the trace over the flat regional plane and the 2-level
+    plane on ``region_tree(levels, branching, k)``, each through the kernel
+    (counted) and replayed through the plain version."""
+    rg, assign = T.region_tree(levels, branching, k, seed=11)
+    events, churn = build_trace(T, rg.n, assign, branching, rounds=rounds,
+                                warmup=warmup, base_rate=TRACE_RATE, seed=12)
+    planes = (("flat", {}), ("2-level", {"levels": 2, "branching": 8}))
+    results, shapes = {}, {}
+    for label, kw in planes:
+        got = {}
+        for impl in (None, "plain"):
+            if impl is None:
+                tk.LAUNCHES = 0
+                tk.LAUNCHES_BY_B.clear()
+                tk.LAUNCHES_BY_SHAPE.clear()
+            t0 = time.perf_counter()
+            with DeviceWaits(lc) as waits:
+                cp = TS.ControlPlane(rg, region_of=assign, seed=5,
+                                     device=device, **impl_cfg(impl), **kw)
+                numbers, state = replay(cp, events, churn, rounds=rounds,
+                                        warmup=warmup)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            numbers.update(wall_s=time.perf_counter() - t0, wait_s=waits.s)
+            if impl is None:
+                numbers.update(launches=tk.LAUNCHES,
+                               launches_by_B=dict(sorted(
+                                   tk.LAUNCHES_BY_B.items())))
+                for shape, c in tk.LAUNCHES_BY_SHAPE.items():
+                    shapes[shape] = shapes.get(shape, 0) + c
+            got[impl] = (numbers, state)
+        (numbers, state), (numbers_p, state_p) = got[None], got["plain"]
+        if device == "cuda":
+            assert numbers["launches"] > 0, f"{label}: no kernel launched"
+        assert state == state_p, f"{label}: the plain replay differs"
+        assert numbers["max_solve_n"] <= k
+        results[label] = numbers
+        print(f"[{tag}] trace replay, {label} plane (n={rg.n}, "
+              f"{int(assign.max()) + 1} leaves of {k}, {rounds} rounds, "
+              f"{warmup} warm-up, {len(events)} arrivals, {len(churn)} churn "
+              f"events): admission rate {numbers['admission_rate']:.4f} of "
+              f"{numbers['steady_submitted']}; admit rounds p50 "
+              f"{numbers['p50_admit_rounds']} p99 "
+              f"{numbers['p99_admit_rounds']}; max_component_state "
+              f"{numbers['max_component_state']} max_solve_n "
+              f"{numbers['max_solve_n']}; messages per round "
+              f"{numbers['messages_per_round']:.2f}; cache hits "
+              f"{numbers['cache_hits']}; dropped {numbers['dropped']}; "
+              f"{numbers['solves']} solves taking {numbers['solve_s']:.2f} s "
+              f"(dispatch + wait + reconstruct), host validate/commit "
+              f"{numbers['overhead_s']:.2f} s; "
+              f"superstep launches {numbers.get('launches')} by B "
+              f"{numbers.get('launches_by_B')}; wall {numbers['wall_s']:.2f} "
+              f"s, host waited on the device {numbers['wait_s']:.2f} s (host "
+              f"share {1 - numbers['wait_s'] / numbers['wall_s']:.4f}); plain "
+              f"replay identical (rids, active set, ledger, coordination "
+              f"counts; wall {numbers_p['wall_s']:.2f} s)")
+    return results, shapes
 
 
 def main() -> int:
@@ -916,6 +1273,28 @@ def main() -> int:
     # -- phase 7: every backend on the paper's worked example ------------
     paper_phase(T, tag)
 
+    # -- phase 8: the centralized control plane --------------------------
+    import repro_torch.service as TS
+
+    pool = distinct_requests(stream, POOL)
+    plane_launches, _ = plane_phase(T, TS, lc, tk, rg, pool, tag)
+
+    # -- phase 9: the regional and hierarchical planes on the trace ------
+    trace, shapes = trace_phase(T, TS, lc, tk, tag)
+    region_t = {}
+    for B in sorted({b for b, _, _ in shapes}):
+        (_, n, K), count = max(((s, c) for s, c in shapes.items()
+                                if s[0] == B), key=lambda sc: sc[1])
+        region_t[B] = dict(time_kernel(tk, tag, B, n, K, 20 + B), n=n, K=K,
+                           launches=sum(c for s, c in shapes.items()
+                                        if s[0] == B))
+    print(f"[{tag}] phase 9 supersteps by (B, n, K): "
+          f"{dict(sorted(shapes.items()))}; kernel device ms at each B "
+          f"(most launched n, K): "
+          + ", ".join(f"B={B} (n={t['n']}, K={t['K']}): {t['ms']:.4f} "
+                      f"(bound {t['bound_ms']:.3g}, {t['bound_by']})"
+                      for B, t in region_t.items()))
+
     print(json.dumps({"kernels": [{
         "name": "batched_superstep",
         "route": "cuda",
@@ -930,6 +1309,13 @@ def main() -> int:
         "library_ms": None,
         "at_B": MICRO_BATCH,
         "launches_by_B": by_b,
+        "launches_by_path": {
+            "admission": launches, "control_plane": plane_launches,
+            **{f"trace_{label}": r["launches"] for label, r in trace.items()},
+        },
+        "region_local": {B: {k: t[k] for k in (
+            "n", "K", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for B, t in region_t.items()},
         "B1": {k: step_t[1][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "max_abs_err")},
     }, {

@@ -2,6 +2,8 @@
 
 Ported so far:
   problem:     BIG sentinel + feasibility epsilons, request tensors
+  compact:     CompactedView — global<->local id bijection; region-local
+               compacted solves (n_r-sized tensors, read/write-through)
   graph:       ResourceGraph, DataflowPath, Mapping, validate_mapping
   topology:    waxman / barabasi_albert / region_* generators, random_dataflow
   exact:       pathmap_exact (paper Alg. 1-3), brute_force oracle
@@ -9,6 +11,7 @@ Ported so far:
   simulator:   simulate (paper Alg. 4, async message passing, §3.4 policies)
   distributed: leastcost_shard_map (decentralized, torch.distributed ranks)
   heuristics:  anneal_python (§3.4.2), random_k_python (§3.4.3)
+  dag:         treemap_leastcost (paper §4 future-work extension)
   reconstruct: parent-pointer backtrack + sound fallback
   engine:      solve / solve_batch / solve_batch_dispatch
   residual:    ResidualState — device-resident residual tensors
@@ -17,6 +20,7 @@ Ported so far:
   carry:       state carried across from the JAX package as numpy arrays
 """
 from .problem import BIG  # noqa: F401
+from .compact import CompactedView, compact_view  # noqa: F401
 from .graph import (  # noqa: F401
     DataflowPath,
     Mapping,
@@ -34,6 +38,7 @@ from .leastcost import (  # noqa: F401
 )
 from .simulator import SimConfig, SimStats, simulate  # noqa: F401
 from .heuristics import anneal_python, random_k_python  # noqa: F401
+from .dag import DataflowTree, TreeMapping, treemap_leastcost  # noqa: F401
 from .distributed import DistStats, leastcost_shard_map  # noqa: F401
 from .engine import (  # noqa: F401
     Stats,

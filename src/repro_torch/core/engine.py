@@ -18,8 +18,8 @@ Registered methods:
   ``shard_map``         the decentralized BSP engine over torch.distributed
                         ranks; its move is the masked min-plus CUDA kernel
 
-``view=`` (region-local compacted solves) is accepted for the reference's
-signature but must be None until ``core/compact.py`` is ported.
+``view=`` (a :class:`~repro_torch.core.compact.CompactedView`) makes any of
+them a region-local solve over the view's compacted ``n_r``-node slice.
 """
 from __future__ import annotations
 
@@ -114,12 +114,6 @@ def backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def _no_view(view) -> None:
-    if view is not None:
-        raise NotImplementedError(
-            "view= compaction needs core/compact.py, not yet ported")
-
-
 def solve(
     rg: ResourceGraph,
     df: DataflowPath,
@@ -127,8 +121,14 @@ def solve(
     view=None,
     **cfg,
 ) -> tuple[Optional[Mapping], Stats]:
-    """Solve one mapping request with the named backend."""
-    _no_view(view)
+    """Solve one mapping request with the named backend.
+
+    ``view`` (a :class:`~repro_torch.core.compact.CompactedView`) makes this
+    a *region-local* solve: ``rg`` and ``df`` stay in global ids, but the
+    backend runs over the view's compacted ``n_r``-node slice and the
+    returned mapping is lifted back to global ids.  ``Stats.solve_n``
+    records the node dimension the backend actually saw.
+    """
     try:
         fn = _REGISTRY[method]
     except KeyError:
@@ -136,9 +136,16 @@ def solve(
             f"unknown mapper backend {method!r}; registered: {backends()}"
         ) from None
     t0 = time.perf_counter()
-    mapping, native = fn(rg, df, **cfg)
+    if view is not None and not view.is_identity:
+        mapping, native = fn(view.compact_graph(rg), view.compact_df(df), **cfg)
+        if mapping is not None:
+            mapping = view.uncompact_mapping(mapping)
+        solve_n = view.n_local
+    else:
+        mapping, native = fn(rg, df, **cfg)
+        solve_n = rg.n
     stats = _unify(native, method)
-    stats.solve_n = rg.n
+    stats.solve_n = solve_n
     stats.solve_ms = 1e3 * (time.perf_counter() - t0)
     return mapping, stats
 
@@ -152,14 +159,23 @@ def solve_batch(
 ) -> tuple[list[Optional[Mapping]], Stats]:
     """Solve many requests against one shared network: one batched DP for
     ``leastcost_torch`` (mixed ``p`` padded), a sequential loop through
-    :func:`solve` for every other backend."""
-    _no_view(view)
+    :func:`solve` for every other backend.
+
+    ``view`` compacts the whole batch into the view's local id space
+    before solving (every request's endpoints must live in the view):
+    tiles pad to the region-local ``n_r``, mappings come back global."""
     if not dfs:
         return [], Stats(method=method, batch_size=0)
     t0 = time.perf_counter()
+    if view is not None and not view.is_identity:
+        rg = view.compact_graph(rg)
+        dfs = [view.compact_df(d) for d in dfs]
     if method in BATCHED_METHODS:
         from .leastcost import leastcost_torch_batched
 
+        # warm-start seeds live in the caller's (already-local) id space;
+        # they cannot survive a view compaction done here
+        assert view is None or view.is_identity or "warm_starts" not in cfg
         stats = Stats(method=method)
         mappings = leastcost_torch_batched(rg, list(dfs), stats=stats, **cfg)
     else:
@@ -178,6 +194,11 @@ def solve_batch(
             stats.preemptions += st.preemptions
             stats.defrag_rounds += st.defrag_rounds
             stats.kernel_impl = stats.kernel_impl or st.kernel_impl
+    if view is not None and not view.is_identity:
+        mappings = [
+            view.uncompact_mapping(m) if m is not None else None
+            for m in mappings
+        ]
     stats.solve_n = rg.n
     stats.batch_size = len(dfs)
     stats.solve_ms = 1e3 * (time.perf_counter() - t0)
@@ -191,9 +212,10 @@ class PendingBatchSolve:
     blocks only inside :meth:`finalize`.  Other backends solve synchronously
     at dispatch and finalize hands the stored result back."""
 
-    def __init__(self, method: str, dfs, *, pending=None, ready=None,
+    def __init__(self, method: str, view, dfs, *, pending=None, ready=None,
                  dispatch_ms: float = 0.0):
         self.method = method
+        self.view = view
         self.dfs = dfs
         self._pending = pending  # leastcost.PendingDP (batched backends)
         self._ready = ready  # (mappings, Stats) (sync backends)
@@ -209,6 +231,11 @@ class PendingBatchSolve:
         t0 = time.perf_counter()
         stats = Stats(method=self.method)
         mappings = leastcost_torch_batched_finalize(self._pending, stats=stats)
+        if self.view is not None and not self.view.is_identity:
+            mappings = [
+                self.view.uncompact_mapping(m) if m is not None else None
+                for m in mappings
+            ]
         stats.solve_n = self._solve_n
         stats.batch_size = len(self.dfs)
         stats.solve_ms = self._dispatch_ms + 1e3 * (time.perf_counter() - t0)
@@ -228,23 +255,27 @@ def solve_batch_dispatch(
     """Asynchronous :func:`solve_batch`: dispatch now, block at
     :meth:`PendingBatchSolve.finalize`.  ``graph_tensors`` injects
     device-resident network tensors (``core.residual.ResidualState``)."""
-    _no_view(view)
     if not dfs:
-        return PendingBatchSolve(method, [],
+        return PendingBatchSolve(method, view, [],
                                  ready=([], Stats(method=method, batch_size=0)))
     if method in BATCHED_METHODS:
         from .leastcost import leastcost_torch_batched_dispatch
 
         t0 = time.perf_counter()
+        if view is not None and not view.is_identity:
+            assert graph_tensors is None, "view compaction vs device tensors"
+            assert "warm_starts" not in cfg, "warm seeds vs view compaction"
+            rg = view.compact_graph(rg)
+            dfs = [view.compact_df(d) for d in dfs]
         pending = leastcost_torch_batched_dispatch(
             rg, list(dfs), graph_tensors=graph_tensors, **cfg
         )
         return PendingBatchSolve(
-            method, list(dfs), pending=pending,
+            method, view, list(dfs), pending=pending,
             dispatch_ms=1e3 * (time.perf_counter() - t0),
         )
-    ready = solve_batch(rg, list(dfs), method=method, **cfg)
-    return PendingBatchSolve(method, list(dfs), ready=ready)
+    ready = solve_batch(rg, list(dfs), method=method, view=view, **cfg)
+    return PendingBatchSolve(method, view, list(dfs), ready=ready)
 
 
 # ---------------------------------------------------------------------------

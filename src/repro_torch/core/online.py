@@ -1,9 +1,8 @@
 """Online multi-request placement service (the paper's dynamicity regime).
 
-Port of ``repro/core/online.py`` (``OnlinePlacer`` without the service-plane
-hooks ``admit_preempting`` and ``view=``, which wait for ``repro_torch.service``
-and ``core/compact.py``; plus ``AdmissionPipeline``).  Solves run on a CUDA
-device unless the caller passes ``device="cpu"``.
+Port of ``repro/core/online.py`` (``OnlinePlacer`` and
+``AdmissionPipeline``).  Solves run on a CUDA device unless the caller passes
+``device="cpu"``.
 
 The paper's setting is *long-running* data-flow applications on a *dynamic*
 network: mapping is not a one-shot solve but a continuous service admitting
@@ -28,9 +27,11 @@ Eidenbenz & Locher 2016 — concurrent in-network stream processing).
   (highest preemption class first, tids preserved), returning
   ``(remapped new tickets, dropped old tickets)`` — the paper's dynamic
   re-mapping scenario served at throughput;
-- per-ticket ``tenant``/``klass`` metadata, ``snapshot``/``restore`` for
-  transactional multi-step mutations, and ``rekey`` (stable ticket handles
-  across re-mapping).
+- service-layer hooks for the multi-tenant control plane
+  (``repro_torch.service``): per-ticket ``tenant``/``klass`` metadata,
+  ``snapshot``/``restore`` for transactional multi-step mutations,
+  ``admit_preempting`` (conservative, strictly class-ordered preemption)
+  and ``rekey`` (stable ticket handles across re-mapping/defrag).
 
 Invariant (checked by ``check_invariants``): for every node and link,
 ``base == residual + sum(ticket loads)`` and ``residual >= 0``.
@@ -38,6 +39,7 @@ Invariant (checked by ``check_invariants``): for every node and link,
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -64,8 +66,9 @@ class Ticket:
     caller must not be able to mutate them after commit — item assignment
     raises ``TypeError`` and the dict a caller passed in is never aliased.
 
-    ``tenant`` / ``klass`` are control-plane metadata: the owning tenant and
-    the preemption class.
+    ``tenant`` / ``klass`` are control-plane metadata (``repro_torch.service``):
+    the owning tenant and the preemption class.  A ticket may only ever be
+    preempted by an admission of *strictly greater* class.
     """
 
     tid: int
@@ -118,6 +121,15 @@ class OnlineStats:
     # warm-started path converges in fewer supersteps than a cold solve
     supersteps: dict = dataclasses.field(default_factory=dict)
 
+    # solver-work fields preserved across speculative rollbacks (preemption
+    # probes, defrag): wall clock was really spent and cache traffic really
+    # happened even when the state change is rolled back
+    _SOLVE_CARRY = (
+        "solve_ms", "overhead_ms", "conflict_resolve_ms", "solves",
+        "solve_n_sum", "cache_hits", "cache_misses", "cache_stale",
+        "cache_neg_hits", "warm_solves", "warm_fallbacks",
+    )
+
     @property
     def mean_solve_n(self) -> float:
         """Mean padded node dimension per DP solve — the number the
@@ -133,6 +145,21 @@ class OnlineStats:
         c.kernel_impls = dict(self.kernel_impls)
         c.supersteps = {k: dict(v) for k, v in self.supersteps.items()}
         return c
+
+    def solve_accounting(self) -> dict:
+        """Capture the solver-work counters before a speculative rollback."""
+        acct = {f: getattr(self, f) for f in self._SOLVE_CARRY}
+        acct["kernel_impls"] = dict(self.kernel_impls)
+        acct["supersteps"] = {k: dict(v) for k, v in self.supersteps.items()}
+        return acct
+
+    def restore_solve_accounting(self, acct: dict) -> None:
+        """Re-apply counters captured by :meth:`solve_accounting` after a
+        ``restore`` — probes did real solver work even when rolled back."""
+        for f in self._SOLVE_CARRY:
+            setattr(self, f, acct[f])
+        self.kernel_impls = dict(acct["kernel_impls"])
+        self.supersteps = {k: dict(v) for k, v in acct["supersteps"].items()}
 
 
 def _edge_loads(df: DataflowPath, mapping: Mapping) -> dict:
@@ -162,11 +189,11 @@ class PendingAdmission:
 
     Produced by :meth:`OnlinePlacer.dispatch_admit`, consumed exactly once
     by :meth:`OnlinePlacer.commit_admit`.  ``epoch`` is the placer's fence
-    value at dispatch: if it moved by commit time (churn, restore) the
-    dispatched results are discarded and the batch re-solves fresh.  The
-    engine handle holds the device tensors it was dispatched with (residual
-    updates are out of place), so residual mutations between dispatch and
-    commit can never corrupt the
+    value at dispatch: if it moved by commit time (churn, restore, regional
+    view invalidation) the dispatched results are discarded and the batch
+    re-solves fresh.  The engine handle holds the device tensors it was
+    dispatched with (residual updates are out of place), so residual
+    mutations between dispatch and commit can never corrupt the
     in-flight solve — only make it *stale*, which commit-time validation
     (optimistic concurrency) or the epoch fence handles.
 
@@ -208,6 +235,7 @@ class OnlinePlacer:
         *,
         method: str = "leastcost_torch",
         device=None,
+        view=None,
         tracer=None,
         cache_enabled: bool = True,
         cache_size: int = 512,
@@ -231,7 +259,23 @@ class OnlinePlacer:
         failures fall back to a full cold solve — admission quality is
         never below the cold path.  The cache is advisory: every hit is
         revalidated against the float64 residual truth before any
-        reserve, so it can never over-commit.
+        reserve, so it can never over-commit, and ``cache_enabled=False``
+        is bit-identical to the pre-cache admission path.  Both knobs ride
+        ``**solve_cfg`` through
+        ``ControlPlane``/``RegionalControlPlane``/``HierarchicalControlPlane``
+        down to every per-region placer, whose caches operate entirely in
+        view-local ids.
+
+        ``view`` (a :class:`~repro_torch.core.compact.CompactedView`) makes
+        this a *region-local* placer: ``rg`` may be the global graph — it is
+        compacted through the view up front, so every piece of state
+        (residual arrays and their device tensors, liveness masks, tickets,
+        routes) and every DP solve and kernel launch lives at the
+        region-local ``n_r``, never the global ``n``.  All dataflows passed
+        to ``admit*`` must already be in the view's local id space
+        (``view.compact_df``); owners of global id spaces (the regional 2PC
+        broker) translate at their boundary and can read the bijection back
+        from ``placer.view``.
 
         ``tracer`` (:class:`repro_torch.obs.trace.Tracer`) records
         solve/commit spans; defaults to the no-op ``NULL`` — tracing is
@@ -239,6 +283,10 @@ class OnlinePlacer:
         """
         self.tracer = tracer if tracer is not None else obs_trace.NULL
         self.device = resolve_device(device)
+        self.view = view
+        if view is not None:
+            rg = view.compact_graph(rg) if rg.n == view.n_global else rg
+            assert rg.n == view.n_local, "graph does not match the view"
         self.base = rg
         self.method = method
         if method in engine.BATCHED_METHODS:
@@ -250,11 +298,32 @@ class OnlinePlacer:
         self._tid = itertools.count()
         self.cache = SolutionCache(cache_size) if cache_enabled else None
         self.max_correction_supersteps = int(max_correction_supersteps)
+        self._cache_suspend = 0
 
     # -- incremental fast path ----------------------------------------------
 
+    @property
+    def _cache(self) -> Optional[SolutionCache]:
+        """The cache, or None while disabled/suspended (defrag repacks
+        suspend it: serving the standing mappings back from cache would
+        make the re-optimization a no-op by construction)."""
+        if self.cache is None or self._cache_suspend:
+            return None
+        return self.cache
+
+    @contextlib.contextmanager
+    def cache_suspended(self):
+        """Bypass the cache (lookups AND fills) inside the block."""
+        self._cache_suspend += 1
+        try:
+            yield
+        finally:
+            self._cache_suspend -= 1
+
     def _stamp(self) -> tuple:
-        """Exact residual identity: host mutation version + staleness epoch."""
+        """Exact residual identity: host mutation version + staleness epoch
+        (the epoch folds in the CompactedView version, so regional view
+        remaps invalidate negative entries automatically)."""
         return (self.res.version, self.epoch)
 
     # -- residual view ------------------------------------------------------
@@ -280,9 +349,14 @@ class OnlinePlacer:
 
     @property
     def epoch(self) -> int:
-        """Staleness fence for in-flight optimistic batches: the residual
-        epoch (liveness changes, rollbacks)."""
-        return self.res.epoch
+        """Staleness fence for in-flight optimistic batches: residual epoch
+        (liveness changes, rollbacks) plus the CompactedView version when
+        this is a region-local placer — regional churn invalidates the view,
+        which must also invalidate any batch solved on the old compaction."""
+        e = self.res.epoch
+        if self.view is not None:
+            e += self.view.version
+        return e
 
     def residual_graph(self) -> ResourceGraph:
         """The network the next solve sees: committed capacity subtracted,
@@ -307,7 +381,7 @@ class OnlinePlacer:
         t = Ticket(next(self._tid), df, mapping, node_load, edge_load,
                    tenant=tenant, klass=klass)
         self.tickets[t.tid] = t
-        cache = self.cache
+        cache = self._cache
         if cache is not None:
             # cache filled only at commit: the entry is a mapping that
             # really held capacity, the strongest reuse candidate
@@ -403,7 +477,7 @@ class OnlinePlacer:
         if not (self.node_up[df.src] and self.node_up[df.dst]):
             self.stats.rejected += 1
             return None
-        cache = self.cache
+        cache = self._cache
         sig = stamp = None
         if cache is not None:
             sig = request_signature(df)
@@ -433,6 +507,79 @@ class OnlinePlacer:
             return None
         self.stats.admitted += 1
         return self._commit(df, mapping, tenant=tenant, klass=klass)
+
+    def admit_preempting(
+        self, df: DataflowPath, *, tenant: str = "", klass: int = 0,
+        max_preempt: int = 8, max_displaced_cost: Optional[float] = None,
+    ) -> tuple[Optional[Ticket], list[Ticket]]:
+        """Admit, displacing strictly-lower-class tickets if necessary.
+
+        Victims are probed lowest class first; within a class, tickets
+        loading the *target node* — the node where residual plus
+        preemptable load peaks, i.e. where released capacity can
+        accumulate into a hole big enough for the request — go first, then
+        larger tickets, then newer.  After each release the request is
+        re-solved on the freed residual.  If no victim set below ``klass``
+        makes the request feasible the whole probe rolls back — preemption
+        is *conservative*: capacity is never destroyed on a failed attempt,
+        and a class-k ticket is only ever displaced by an admission of
+        class > k.  Returns ``(ticket, preempted)``; the caller owns
+        re-queueing the preempted work (e.g. through its tenant queue in
+        the control plane).
+
+        ``max_displaced_cost`` is the preemption *cost budget*: the summed
+        committed compute of the displaced victims may not exceed it.  A
+        victim that fits exactly at the budget may still be displaced; the
+        first victim that would push past it ends the probe, which then
+        rolls back cleanly if the request is still infeasible.
+        """
+        rejected0 = self.stats.rejected  # a served request is not a rejection
+        t = self.admit(df, tenant=tenant, klass=klass)
+        if t is not None:
+            return t, []
+        candidates = [v for v in self.tickets.values() if v.klass < klass]
+        if not candidates:
+            return None, []
+        # concentrate releases where they can open the largest hole
+        # (downed nodes can never host the request, whatever their cap)
+        potential = np.where(self.node_up, self.cap, -np.inf)
+        for v in candidates:
+            for node, c in v.node_load.items():
+                potential[node] += c
+        target = int(np.argmax(potential))
+        victims = sorted(
+            candidates,
+            key=lambda v: (
+                v.klass,
+                -v.node_load.get(target, 0.0),
+                -sum(v.node_load.values()),
+                -v.tid,
+            ),
+        )
+        snap = self.snapshot()
+        preempted: list[Ticket] = []
+        displaced_cost = 0.0
+        for v in victims[:max_preempt]:
+            vcost = sum(v.node_load.values())
+            if (
+                max_displaced_cost is not None
+                and displaced_cost + vcost > max_displaced_cost + 1e-9
+            ):
+                break  # over budget: end the probe (rolls back below)
+            self.release(v, reason="preempted")
+            preempted.append(v)
+            displaced_cost += vcost
+            t = self.admit(df, tenant=tenant, klass=klass)
+            if t is not None:
+                # probe rejections along the way are not real rejections
+                self.stats.rejected = rejected0
+                return t, preempted
+        # probes did real solver work: keep the solve accounting across the
+        # rollback (state restores, wall-clock and solve counts do not)
+        acct = self.stats.solve_accounting()
+        self.restore(snap)
+        self.stats.restore_solve_accounting(acct)
+        return None, []
 
     def _dispatch_solve(self, dfs: list[DataflowPath], *,
                         warm_starts=None,
@@ -488,7 +635,7 @@ class OnlinePlacer:
         if not dfs:
             return PendingAdmission([], [], None, self.epoch, tag=tag)
         self.stats.batches += 1
-        cache = self.cache
+        cache = self._cache
         if cache is None:
             handle = self._dispatch_solve(dfs)
             return PendingAdmission(dfs, list(metas), handle, self.epoch,
@@ -546,7 +693,7 @@ class OnlinePlacer:
 
         Three staleness layers, cheapest first:
 
-        - epoch fence: if churn / restore happened since
+        - epoch fence: if churn / restore / view invalidation happened since
           dispatch, the whole in-flight solve is discarded (never committed)
           and the batch re-solves fresh on the degraded network;
         - per-request validation: a mapping invalidated by commits that
@@ -601,7 +748,7 @@ class OnlinePlacer:
                 self._note_solve(wst, mode="warm")
                 for i, m in zip(pending.warm_idx, warm_maps):
                     mappings[i] = m
-        cache = self.cache if plan is not None else None
+        cache = self._cache if plan is not None else None
         span = self.tracer.span("validate.commit", track="placer",
                                 cat="admit", batch=len(dfs))
         t_host = time.perf_counter()

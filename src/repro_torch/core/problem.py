@@ -127,7 +127,7 @@ def pad_request(df: DataflowPath, p_max: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def stack_requests(rg: ResourceGraph, dfs: list[DataflowPath],
-                   pad_to: int | None = None, *, device,
+                   pad_to: int | None = None, *, device, view=None,
                    graph_tensors: dict | None = None) -> tuple[dict, int]:
     """Stack mixed-``p`` requests against one shared resource network into
     the batched tensor dict for the batched DP.  Returns (tensors, p_max);
@@ -137,8 +137,19 @@ def stack_requests(rg: ResourceGraph, dfs: list[DataflowPath],
     last request (a well-formed dummy problem), so padded batches give the
     same results for the real rows.  Callers must ignore results beyond
     ``len(dfs)``.
+
+    ``view`` compacts a global problem into the view's local id space: the
+    node dimension of every stacked tensor is the region-local ``n_r``, not
+    the global ``n`` (see :mod:`repro_torch.core.compact`).
+
+    ``graph_tensors`` injects device-resident ``{cap, bw, lat}`` (already in
+    whatever id space ``dfs`` use — incompatible with ``view`` compaction).
     """
     assert dfs
+    if view is not None:
+        assert graph_tensors is None, "view compaction vs device tensors"
+        rg = view.compact_graph(rg)
+        dfs = [view.compact_df(d) for d in dfs]
     dev = torch.device(device)
     reqs = list(dfs)
     if pad_to is not None:

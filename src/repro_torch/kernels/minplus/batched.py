@@ -19,7 +19,8 @@ superstep of a relaxation.
 plain version for CPU tensors.  :func:`batched_superstep_plain` is a torch
 transcription of the reference's ``batched_superstep_ref``; the kernel
 agrees with it bit for bit (C, par_v, par_j).  ``LAUNCHES`` counts kernel
-supersteps launched, ``LAUNCHES_BY_B`` the same keyed by batch size.
+supersteps launched, ``LAUNCHES_BY_B`` the same keyed by batch size and
+``LAUNCHES_BY_SHAPE`` keyed by (B, n, K).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from .._build import check_tensor as _check
 
 LAUNCHES = 0  # kernel supersteps launched (one per wrapper call on CUDA)
 LAUNCHES_BY_B: dict[int, int] = {}  # the same supersteps, keyed by batch B
+LAUNCHES_BY_SHAPE: dict[tuple, int] = {}  # ... and keyed by (B, n, K)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "batched_superstep.cu"
 
@@ -253,6 +255,7 @@ def batched_superstep(C, par_v, par_j, lat, bw, cap, prefix, breq_k, *,
     check_launch(kl, err, "batched_superstep")
     LAUNCHES += 1
     LAUNCHES_BY_B[B] = LAUNCHES_BY_B.get(B, 0) + 1
+    LAUNCHES_BY_SHAPE[B, n, K] = LAUNCHES_BY_SHAPE.get((B, n, K), 0) + 1
     return Cn, pvn, pjn
 
 

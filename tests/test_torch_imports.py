@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
+import repro_torch.service as TS
 from repro_torch.core import engine, leastcost
 from repro_torch.kernels.minplus import batched
 
@@ -42,11 +43,35 @@ def test_every_module_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 15
 
 
+@pytest.mark.parametrize("module", ["repro_torch.service", "repro_torch.obs",
+                                    "repro_torch.core.dag"])
+def test_service_obs_and_dag_import_without_jax(module):
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"m = importlib.import_module({module!r})\n"
+        "assert not any(k == 'repro' or k.startswith('repro.')\n"
+        "               for k in sys.modules), 'imported the JAX package'\n"
+        "assert not any(k == 'jax' or k.startswith('jax.')\n"
+        "               for k in sys.modules if sys.modules[k] is not None)\n"
+        "print(m.__name__)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == module
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference(path):
     src = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
     assert not re.search(r"^\s*(import|from)\s+repro(\.|\s)", src, re.M), path
+    # nor by name, through importlib or __import__
+    assert not re.search(r"""(import_module|__import__)\(\s*["'](repro|jax)\b""",
+                         src), path
 
 
 def _tiny():
@@ -65,6 +90,9 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         lambda: engine.solve_batch_dispatch(rg, [df]),
         lambda: leastcost.leastcost_torch(rg, df),
         lambda: leastcost.leastcost_torch_batched(rg, [df]),
+        lambda: TS.ControlPlane(rg),
+        lambda: TS.ControlPlane(rg, regions=2),
+        lambda: TS.ControlPlane(rg, levels=2, regions=4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

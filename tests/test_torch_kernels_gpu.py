@@ -14,7 +14,8 @@ from repro_torch.kernels.minplus import minplus as tmp
 from repro_torch.kernels.minplus.ops import _breq_k
 from repro_torch.kernels.place import place as tplace
 
-from torch_kernel_cases import (minplus_big_columns, minplus_block,
+from torch_kernel_cases import (REGION_SHAPES, minplus_big_columns,
+                                minplus_block,
                                 minplus_instance, minplus_split_tie,
                                 place_above_big, place_instance,
                                 place_nonmonotone, place_tie_instance,
@@ -107,6 +108,14 @@ def test_superstep_flags_sequence_matches_plain_on_card(card, B, n, K,
     """Twelve supersteps on one workspace with the device control word,
     across the fixpoint (or the round cap): flags and state after every
     step equal ``plain_superstep``'s."""
+    t, stopped = _flags_sequence(card, B, n, K, max_rounds)
+    assert stopped
+    assert t == 3 if max_rounds == 3 else 3 < t < 12  # cap, or a fixpoint
+
+
+def _flags_sequence(card, B, n, K, max_rounds):
+    """Twelve supersteps of the kernel and of the plain version from the
+    DP's cold start; returns the round count and whether it stopped."""
     args = [torch.from_numpy(a).to(card) for a in relaxation_state(B, n, K, 8)]
     ws = tk.make_workspace(B, n, K, card)
     fk = torch.tensor([0, 1, 0, max_rounds], dtype=torch.int32, device=card)
@@ -119,9 +128,35 @@ def test_superstep_flags_sequence_matches_plain_on_card(card, B, n, K,
         _equal(sk, sp)
         assert fk.tolist() == fp.tolist()
         stopped |= fk[1].item() == 0
+    return fk[0].item(), stopped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,K", REGION_SHAPES)
+def test_superstep_region_local_shapes_match_plain_on_card(card, B, n, K):
+    """The control planes' shapes: random states, ties, and BIG overflow
+    (every C and half of lat at BIG, so P + lat lands above BIG)."""
+    ws = tk.make_workspace(B, n, K, card)
+    assert ws.plan.w_tiles == 1
+    seed = B * 100 + n + K
+    _superstep_equal(card, random_state(B, n, K, seed), workspace=ws)
+    _superstep_equal(card, tie_state(B, n, K), workspace=ws)
+    args = random_state(B, n, K, seed + 1, big_frac=1.0)
+    got = _superstep_equal(card, args, workspace=ws)
+    assert torch.equal(got[0].cpu(), torch.from_numpy(args[0]))
+    assert ws.ticket.item() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,K", [(1, 16, 4), (4, 40, 6), (32, 64, 6)])
+@pytest.mark.parametrize("max_rounds", [50, 4], ids=["fixpoint", "round_cap"])
+def test_superstep_region_local_flags_sequence_on_card(card, B, n, K,
+                                                       max_rounds):
+    """The flags sequence at region-local shapes, with the warm solves'
+    round cap of 4."""
+    t, stopped = _flags_sequence(card, B, n, K, max_rounds)
     assert stopped
-    t = fk[0].item()
-    assert t == 3 if max_rounds == 3 else 3 < t < 12  # cap, or a fixpoint
+    assert t == 4 if max_rounds == 4 else 4 < t < 12  # cap, or a fixpoint
 
 
 def _minplus_cases():

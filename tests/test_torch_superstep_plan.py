@@ -1,6 +1,9 @@
 """The superstep kernel's launch plan (``plan_superstep``), a plain Python
 function, checked on the CPU: the v splits cover every v exactly once, the
-launch stays within CUDA's limits, and a single request fills an H100."""
+launch stays within CUDA's limits, and a single request fills an H100;
+at the region-local shapes of the control planes (n_r = 16 to 64, below
+one output tile) the plan is one w tile and at most one v split per
+32-row v tile."""
 import pytest
 
 from repro_torch.kernels.minplus import batched as tk
@@ -13,6 +16,10 @@ MAX_BLOCK_SMEM = 232448  # sm_90, dynamic shared memory per block
 @pytest.mark.parametrize("n", [10, 1000, 1024, 4096])
 @pytest.mark.parametrize("B", [1, 2, 8, 64])
 def test_plan_covers_v_and_fits_cuda_limits(B, n, K):
+    _check_plan(B, n, K)
+
+
+def _check_plan(B, n, K):
     p = tk.plan_superstep(B, n, K, H100_SMS)
     # v splits: consecutive chunks of v_chunk rows, each non-empty
     assert p.v_chunk % tk.V_TILE == 0 and 1 <= p.splits <= tk.MAX_SPLITS
@@ -34,6 +41,16 @@ def test_plan_covers_v_and_fits_cuda_limits(B, n, K):
     assert tk.MIN_STAGES <= p.stages <= tk.MAX_STAGES
     assert p.smem == tk.smem_bytes(p.kt, p.tb, K, p.stages) <= MAX_BLOCK_SMEM
     assert tk.BLOCKS_PER_SM * (p.smem + 1024) <= tk.SMEM_PER_SM
+    return p
+
+
+@pytest.mark.parametrize("K", [4, 6])
+@pytest.mark.parametrize("n", [16, 40, 64])
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_region_local_plans_cover_v_and_fit(B, n, K):
+    p = _check_plan(B, n, K)
+    assert p.w_tiles == 1 and p.kchunks == 1 and p.kt >= K
+    assert p.splits <= -(-n // tk.V_TILE)
 
 
 @pytest.mark.parametrize("n", [1024, 4096])

@@ -5,6 +5,12 @@ import numpy as np
 
 from repro_torch.core.problem import BIG
 
+# The superstep shapes the control planes launch: region-local n_r of 16 to
+# 64 nodes (below one 64-column output tile), K = p + 1 for dataflows of 3
+# and 5 nodes, and B from one re-solve up to a regional micro-batch.
+REGION_SHAPES = [(B, n, K) for B in (1, 4, 32) for n in (16, 40, 64)
+                 for K in (4, 6)]
+
 
 def random_state(B, n, K, seed, big_frac=0.4):
     """The reference test's random superstep inputs, as numpy arrays."""
