@@ -43,7 +43,24 @@ just before and read just after:
   each through the kernel at the region-local n_r = 64 and replayed through
   the plain version, which must end in the same rids, active set, ledger
   and coordination counts; the superstep is then timed at n_r = 64 at
-  every batch size the trace launched.
+  every batch size the trace launched;
+- serving (phase 10): device placement through the superstep kernel
+  (``plan_pipeline`` for every arch x shape cell x 1, 2 and 4 pods,
+  ``plan_serving`` as ``launch/serve.py`` calls it, the VLM's tree
+  dataflow), held bitwise against ``kernel_impl="plain"``; then
+  ``launch/serve.py``'s model path at the full width of qwen2-0.5b in
+  float32 (24 layers, 494 M parameters from a generator seeded 2009): the
+  continuous-batching ``Engine`` (8 slots, max_len 512) serves 32 greedy
+  requests with prompts of 16-256 tokens and 32 new tokens each, then 8
+  requests at temperature 0.7 and top-k 20 twice from one seed (identical
+  outputs), with tokens/s, decode step p50/p95 against the weights' bytes
+  over the HBM rate, prefill ms by prompt length and peak memory.  Its
+  checks: 4 requests equal a straight-line greedy through ``lm_forward``
+  up to their first near tie (top-2 gap at most 1e-3 x max |logit|); the
+  prefill logits of 2 prompts of 32 tokens agree with the same weights on
+  the host CPU within 1e-3 x max |logit|, and 8 greedy decode steps agree
+  wherever the CPU's top-2 gap exceeds 10x that error.  The model layers
+  run no TPU kernel's port: the reference computes them in plain ``jnp``.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -1097,6 +1114,296 @@ def trace_phase(T, TS, lc, tk, tag, *, levels=3, branching=4, k=64,
     return results, shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: serving — the mapper as device placement, then the dense model
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen2-0.5b"  # the model launch/serve.py's docstring names
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 512
+SERVE_REQUESTS, SERVE_NEW = 32, 32
+PROMPT_LENS = (16, 256)  # uniform, both ends included
+SAMPLED, SAMPLE_T, SAMPLE_TOP_K = 8, 0.7, 20  # launch/serve.py's setting
+GREEDY_CHECKS = 4  # requests held against a straight-line greedy
+HOST_PROMPTS, HOST_PROMPT_LEN, HOST_DECODE = 2, 32, 8
+
+
+def placement_plans(pl, cfgs, shapes, impl, device):
+    """Every plan of the placement path: ``plan_pipeline`` for each arch x
+    shape cell x pod count, ``plan_serving`` as ``launch/serve.py`` calls
+    it for each arch, and the VLM's tree dataflow."""
+    plans = {}
+    for pods in (1, 2, 4):
+        topo = pl.PodTopology(pods=pods)
+        for arch, cfg in cfgs.items():
+            for name, shape in shapes.items():
+                plans[("pipeline", arch, name, pods)] = pl.plan_pipeline(
+                    cfg, shape, topo, device=device, kernel_impl=impl)
+    for arch, cfg in cfgs.items():
+        plans[("serving", arch)] = pl.plan_serving(
+            cfg, shapes["decode_32k"], pl.PodTopology(pods=1),
+            requests_per_sec=100.0, device=device, kernel_impl=impl)
+    plans[("tree", "internvl2-2b")] = pl.plan_tree_serving(
+        cfgs["internvl2-2b"])
+    return plans
+
+
+def plan_key(plan):
+    if plan is None:
+        return None
+    if hasattr(plan, "stage_slices"):
+        return (list(plan.stage_slices), tuple(plan.route),
+                float(plan.latency_us))
+    return (plan.assign, float(plan.cost), plan.valid, plan.routes)
+
+
+def placement_phase(tk, tag, *, device="cuda"):
+    """Placement through the superstep kernel, then through the plain
+    version: the same plans, bit for bit.  Returns the kernel's launches."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import placement as pl
+    from repro_torch.models.config import SHAPES
+
+    cfgs = {a: get_config(a) for a in ARCHS}
+    impl = "cuda" if torch.device(device).type == "cuda" else "plain"
+    tk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    kern = placement_plans(pl, cfgs, SHAPES, impl, device)
+    wall = time.perf_counter() - t0
+    launches = tk.LAUNCHES
+    tk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    plain = placement_plans(pl, cfgs, SHAPES, "plain", device)
+    wall_p = time.perf_counter() - t0
+    assert tk.LAUNCHES == 0, "the plain placement launched the kernel"
+    for key, plan in kern.items():
+        assert plan_key(plan) == plan_key(plain[key]), (key, plan, plain[key])
+    if impl == "cuda":
+        assert launches > 0, "placement launched no superstep"
+    feasible = sum(p is not None for p in kern.values())
+    serving = {k[1]: kern[k].stage_slices for k in kern
+               if k[0] == "serving" and kern[k] is not None}
+    print(f"[{tag}] placement: {len(kern)} plans ({feasible} feasible) "
+          f"through the kernel == plain bitwise (stage_slices, route, "
+          f"latency_us); {launches} superstep launches; wall {wall:.2f} s "
+          f"(plain {wall_p:.2f} s); decode dataflow of launch/serve.py -> "
+          f"slices {serving}")
+    return launches
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn, log, device, key=None):
+    """``fn`` with the host clock around each call, synchronized."""
+    def run(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        log.append(ms if key is None else (key(*args), ms))
+        return out
+    return run
+
+
+def top2_gap(logits):
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def straightline_check(lm, cfg, model, req, device, tag):
+    """The engine's greedy tokens against argmax over ``lm_forward`` of the
+    whole sequence, step by step, up to the first near tie (top-2 gap at
+    most 1e-3 x max |logit|), where cached and recomputed logits may round
+    either way."""
+    toks = list(req.prompt)
+    with torch.no_grad():
+        for step, got in enumerate(req.out):
+            lg, _ = lm.lm_forward(cfg, model, torch.tensor([toks], device=device),
+                                  logits_mode="last")
+            row = lg[0, -1]
+            gap, scale = top2_gap(row), float(row.abs().max())
+            if gap <= 1e-3 * scale:
+                print(f"[{tag}] request {req.rid}: near tie at step {step} "
+                      f"(top-2 gap {gap:.3g}, max |logit| {scale:.3g}); "
+                      f"compared {step} steps")
+                return step
+            want = int(torch.argmax(row))
+            assert got == want, (req.rid, step, got, want, gap)
+            toks.append(want)
+    return len(req.out)
+
+
+def greedy_decode(lm, cfg, model, prompts, steps, device):
+    """lm_prefill then ``steps`` greedy lm_decode_step calls at batch
+    len(prompts); returns the prefill logits and per-step (tokens, logits)."""
+    B, S = prompts.shape
+    cache = lm.init_lm_cache(cfg, B, S + steps, torch.float32, device=device)
+    tok = torch.from_numpy(prompts).to(device)
+    first, cache = lm.lm_prefill(cfg, model, tok, cache)
+    out, logits = [], first[:, -1]
+    for i in range(steps):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append((nxt.cpu(), logits.float().cpu()))
+        lg, cache = lm.lm_decode_step(cfg, model, nxt[:, None], cache, S + i)
+        logits = lg[:, -1]
+    return first[:, -1].float().cpu(), out
+
+
+def host_check(lm, cfg, model, rng, device, tag):
+    """Prefill logits on the device against the same weights on the host
+    CPU (float32), then greedy decoding on both."""
+    host = lm.LM(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    prompts = rng.integers(0, cfg.vocab, (HOST_PROMPTS, HOST_PROMPT_LEN)
+                           ).astype(np.int32)
+    dev_first, dev_steps = greedy_decode(lm, cfg, model, prompts,
+                                         HOST_DECODE, device)
+    cpu_first, cpu_steps = greedy_decode(lm, cfg, host, prompts,
+                                         HOST_DECODE, "cpu")
+    err = float((dev_first - cpu_first).abs().max())
+    scale = float(cpu_first.abs().max())
+    print(f"[{tag}] prefill logits, {device} vs host CPU (float32, "
+          f"{HOST_PROMPTS} prompts of {HOST_PROMPT_LEN}): max abs err "
+          f"{err:.3g}, max |logit| {scale:.3g} (limit {1e-3 * scale:.3g})")
+    assert err <= 1e-3 * scale, (err, scale)
+    compared = []
+    for b in range(HOST_PROMPTS):
+        n = HOST_DECODE
+        for i, ((dt, _), (ct, cl)) in enumerate(zip(dev_steps, cpu_steps)):
+            gap = top2_gap(cl[b])
+            if gap <= 10 * err:
+                print(f"[{tag}] host check, prompt {b}: near tie at decode "
+                      f"step {i} (CPU top-2 gap {gap:.3g} <= 10 x {err:.3g});"
+                      f" compared {i} steps")
+                n = i
+                break
+            assert int(dt[b]) == int(ct[b]), (b, i, int(dt[b]), int(ct[b]))
+        compared.append(n)
+    print(f"[{tag}] greedy decode, {device} vs host CPU: tokens agree over "
+          f"{compared} of {HOST_DECODE} steps per prompt")
+    return err, scale
+
+
+def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
+                  requests=SERVE_REQUESTS, max_new=SERVE_NEW,
+                  slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                  prompt_lens=PROMPT_LENS):
+    """``launch/serve.py``'s path at full width: the model from a seeded
+    generator, the continuous-batching engine (greedy, then the launcher's
+    sampling setting twice), and its correctness checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as lm
+    from repro_torch.models.registry import init_model
+    from repro_torch.serving import Engine, Request
+
+    if torch.device(device).type == "cuda":
+        # full-precision float32 products for the comparison with the host
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = init_model(cfg, gen, device=device)
+    sync(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = 4 * n_params
+    bound_ms = 1e3 * weight_bytes / HBM_BYTES_S
+    print(f"[{tag}] serving {cfg.name} float32 on {device}: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+          f"({weight_bytes / 1e9:.3f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, requests)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+
+    def engine(temperature, top_k):
+        return Engine(cfg, model, n_slots=slots, max_len=max_len,
+                      temperature=temperature, top_k=top_k, seed=SEED,
+                      device=device)
+
+    warm = engine(0.0, 0)  # first-call library set-up, not timed
+    for i in range(2):
+        warm.submit(Request(rid=i, prompt=prompts[i][:16], max_new=4))
+    warm.run()
+    del warm
+
+    eng = engine(0.0, 0)
+    ticks_ms, prefill_ms = [], []
+    eng._decode = timed(eng._decode, ticks_ms, device)
+    eng._prefill = timed(eng._prefill, prefill_ms, device,
+                         key=lambda m, t, c: int(t.shape[1]))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+    sync(device)
+    t0 = time.perf_counter()
+    done, ticks = eng.run()
+    sync(device)
+    wall = time.perf_counter() - t0
+    assert len(done) == requests and all(len(r.out) == max_new for r in done)
+    assert all(0 <= t < cfg.vocab for r in done for t in r.out)
+    generated = sum(len(r.out) for r in done)
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+    tick = np.asarray(ticks_ms)
+    by_len = sorted(prefill_ms)
+    buckets = {}
+    for n, ms in by_len:
+        lo = 64 * ((n - 1) // 64) + 1
+        buckets.setdefault(f"{lo}-{lo + 63}", []).append(ms)
+    stats = {
+        "arch": cfg.name, "requests": requests, "slots": slots,
+        "max_len": max_len, "max_new": max_new, "wall_s": wall,
+        "generated_tokens": generated, "tokens_per_s": generated / wall,
+        "ticks": ticks, "decode_steps": len(tick),
+        "decode_step_ms_p50": float(np.percentile(tick, 50)),
+        "decode_step_ms_p95": float(np.percentile(tick, 95)),
+        "decode_bound_ms": bound_ms,
+        "prefill_ms_by_len": {k: [len(v), float(np.median(v))]
+                              for k, v in buckets.items()},
+        "prefill_ms_total": float(sum(ms for _, ms in by_len)),
+        "peak_device_bytes": peak, "weight_bytes": weight_bytes,
+    }
+    print(f"[{tag}] engine, greedy: {requests} requests (prompts "
+          f"{lens.min()}-{lens.max()} tokens), {slots} slots, max_len "
+          f"{max_len}, {max_new} new tokens each: wall {wall:.3f} s, "
+          f"{generated} tokens, {stats['tokens_per_s']:.1f} tokens/s, "
+          f"{ticks} ticks; decode step p50 {stats['decode_step_ms_p50']:.3f} "
+          f"ms p95 {stats['decode_step_ms_p95']:.3f} ms against a bound of "
+          f"{bound_ms:.3f} ms (the weights' bytes over {HBM_BYTES_S / 1e12} "
+          f"TB/s); prefill total {stats['prefill_ms_total']:.1f} ms, median "
+          f"ms by prompt length [count, ms] {stats['prefill_ms_by_len']}; "
+          f"peak device memory {peak}")
+
+    # serve.py's sampling setting, twice from the same seed
+    runs = []
+    for _ in range(2):
+        e = engine(SAMPLE_T, SAMPLE_TOP_K)
+        for i, prompt in enumerate(prompts[:SAMPLED]):
+            e.submit(Request(rid=i, prompt=prompt, max_new=max_new))
+        out, _ = e.run()
+        runs.append([(r.rid, r.out) for r in out])
+    assert runs[0] == runs[1], "sampled outputs differ between seeded runs"
+    assert all(0 <= t < cfg.vocab for _, o in runs[0] for t in o)
+    print(f"[{tag}] engine, temperature {SAMPLE_T} top_k {SAMPLE_TOP_K}: "
+          f"{len(runs[0])} requests, two runs from seed {SEED} identical")
+
+    # (a) the engine against a straight-line greedy
+    steps = [straightline_check(lm, cfg, model, r, device, tag)
+             for r in sorted(done, key=lambda r: r.rid)[:GREEDY_CHECKS]]
+    print(f"[{tag}] engine greedy == straight-line greedy (lm_forward, "
+          f"logits_mode='last') over {steps} steps of requests "
+          f"0-{GREEDY_CHECKS - 1}")
+    stats["straightline_steps"] = steps
+    # (b), (c) the device against the host CPU
+    err, scale = host_check(lm, cfg, model, rng, device, tag)
+    stats["host_max_abs_err"], stats["host_max_logit"] = err, scale
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1295,6 +1602,13 @@ def main() -> int:
                       f"(bound {t['bound_ms']:.3g}, {t['bound_by']})"
                       for B, t in region_t.items()))
 
+    # -- phase 10: serving: placement through the kernel, then the model --
+    t0 = time.perf_counter()
+    placement_launches = placement_phase(tk, tag)
+    serving = serving_phase(tag)
+    print(f"[{tag}] serving: {json.dumps(serving)}")
+    print(f"[{tag}] phase 10 wall {time.perf_counter() - t0:.2f} s")
+
     print(json.dumps({"kernels": [{
         "name": "batched_superstep",
         "route": "cuda",
@@ -1312,6 +1626,7 @@ def main() -> int:
         "launches_by_path": {
             "admission": launches, "control_plane": plane_launches,
             **{f"trace_{label}": r["launches"] for label, r in trace.items()},
+            "placement": placement_launches,
         },
         "region_local": {B: {k: t[k] for k in (
             "n", "K", "launches", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,0 +1,201 @@
+"""GQA attention with RoPE, chunked (flash-style) prefill and KV-cache decode.
+
+Port of ``repro/models/attention.py``, in plain PyTorch.  Prefill never
+materializes the full (S, S) score matrix: an online softmax runs over KV
+chunks, one query chunk at a time, with the reference's arithmetic and its
+chunk sizes (``_chunked_attention``).  Decode computes one-step attention
+against the cache.
+
+Cache writes keep the reference's rules for positions out of range: a
+per-slot write (``.at[rows, pos].set``) drops the row, a scalar write
+(``dynamic_update_slice``) clamps its start into the cache.  The cache is
+written in place and returned.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .common import apply_rope, dtype_of, einsum, matmul
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo`` (and ``bq``, ``bk``, ``bv`` with
+    ``cfg.qkv_bias``): the reference's ``init_attention``; ``forward`` is
+    its ``attention`` and ``decode`` its ``decode_attention``."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.hd()
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        kw = dict(dtype=dtype_of(cfg.dtype), device=device)
+        self.wq = nn.Parameter(torch.empty(d, nq * hd, **kw))
+        self.wk = nn.Parameter(torch.empty(d, nkv * hd, **kw))
+        self.wv = nn.Parameter(torch.empty(d, nkv * hd, **kw))
+        self.wo = nn.Parameter(torch.empty(nq * hd, d, **kw))
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(nq * hd, **kw))
+            self.bk = nn.Parameter(torch.zeros(nkv * hd, **kw))
+            self.bv = nn.Parameter(torch.zeros(nkv * hd, **kw))
+
+    def project_qkv(self, x, xkv=None):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, nq, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+        xkv = x if xkv is None else xkv
+        q = matmul(x, self.wq)
+        k = matmul(xkv, self.wk)
+        v = matmul(xkv, self.wv)
+        if cfg.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = q.reshape(B, S, nq, hd)
+        k = k.reshape(B, xkv.shape[1], nkv, hd)
+        v = v.reshape(B, xkv.shape[1], nkv, hd)
+        return q, k, v
+
+    def forward(self, x, positions, *, causal=True, xkv=None, q_chunk=512,
+                kv_chunk=1024, use_rope=True):
+        """Full-sequence attention (train / prefill / encoder / cross with
+        ``xkv``).  Returns ``(out, (k, v))``."""
+        q, k, v = self.project_qkv(x, xkv)
+        if xkv is None and use_rope:  # self-attention: rope both
+            q = apply_rope(q, positions, self.cfg.rope_theta)
+            k = apply_rope(k, positions, self.cfg.rope_theta)
+        out = _chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk)
+        B, S = x.shape[:2]
+        return matmul(out.reshape(B, S, -1), self.wo), (k, v)
+
+    def decode(self, x, cache, pos, *, rope: bool = True):
+        """One-token decode. x: (B, 1, d); cache k/v: (B, Smax, nkv, hd);
+        pos: scalar, or (B,) for per-slot positions (continuous batching).
+        Returns (out, cache)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        hd, nq, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+        g = nq // nkv
+        pos = torch.as_tensor(pos, device=x.device)
+        per_slot = pos.ndim == 1
+        q, k, v = self.project_qkv(x)
+        if rope:
+            pp = (pos[:, None] if per_slot else pos.expand(B, 1)).to(torch.int32)
+            q = apply_rope(q, pp, cfg.rope_theta)
+            k = apply_rope(k, pp, cfg.rope_theta)
+        for name, new in (("k", k), ("v", v)):
+            if per_slot:
+                _scatter_rows(cache[name], pos, new[:, 0])
+            else:
+                _update_slice(cache[name], new, pos)
+        S = cache["k"].shape[1]
+        qh = (q * hd ** -0.5).reshape(B, nkv, g, hd)
+        s = einsum("bkgh,bskh->bkgs", qh, cache["k"]).to(torch.float32)
+        kv_pos = torch.arange(S, device=x.device)[None, None, None, :]
+        bound = pos[:, None, None, None] if per_slot else pos
+        s = torch.where(kv_pos <= bound, s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        out = einsum("bkgs,bskh->bkgh", w.to(cache["v"].dtype), cache["v"])
+        out = out.reshape(B, 1, nq * hd)
+        return matmul(out, self.wo), cache
+
+
+def _scatter_rows(buf, pos, rows):
+    """``buf.at[arange(B), pos].set(rows)`` with JAX's rules: a negative
+    position counts from the end, and a row whose position is still out of
+    range is dropped.  No host synchronization."""
+    S = buf.shape[1]
+    idx = pos.long()
+    idx = torch.where(idx < 0, idx + S, idx)
+    keep = (idx >= 0) & (idx < S)
+    safe = idx.clamp(0, S - 1)
+    b = torch.arange(buf.shape[0], device=buf.device)
+    buf[b, safe] = torch.where(keep[:, None, None], rows.to(buf.dtype),
+                               buf[b, safe])
+
+
+def _update_slice(buf, new, start):
+    """``dynamic_update_slice(buf, new, (0, start, 0, 0))``: the start is
+    clamped so that the whole update lies inside ``buf``."""
+    n = new.shape[1]
+    if n > buf.shape[1]:
+        raise ValueError(f"update of {n} positions into a cache of "
+                         f"{buf.shape[1]}")
+    first = torch.clamp(torch.as_tensor(start, device=buf.device),
+                        0, buf.shape[1] - n)
+    idx = first.long().reshape(1) + torch.arange(n, device=buf.device)
+    buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
+def _chunk_count(n: int, chunk: int) -> int:
+    """The reference's chunking: above ``chunk``, ``n // chunk`` chunks of
+    ``n // (n // chunk)`` each.  Its reshape fails where they do not tile
+    ``n``; so does this (the port pads nothing)."""
+    count = max(1, n // max(chunk, 1)) if n > chunk else 1
+    if n % count:
+        raise ValueError(
+            f"sequence of {n} does not split into {count} chunks of "
+            f"{n // count} (chunk size {chunk}); the reference's reshape "
+            f"rejects this shape too")
+    return count
+
+
+def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
+    """Online-softmax attention. q: (B,Sq,nq,hd), k/v: (B,Skv,nkv,hd).
+
+    GQA handled by reshaping q to (B, Sq, nkv, g, hd).  Runs KV chunks with
+    running (max, denom, acc), one q chunk at a time.
+    """
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = hd ** -0.5
+    q = (q * scale).reshape(B, Sq, nkv, g, hd)
+
+    nqc = _chunk_count(Sq, q_chunk)
+    q_chunk = Sq // nqc
+    nkc = _chunk_count(Skv, kv_chunk)
+    kv_chunk = Skv // nkc
+
+    q_ch = q.reshape(B, nqc, q_chunk, nkv, g, hd)
+    k_ch = k.reshape(B, nkc, kv_chunk, nkv, hd)
+    v_ch = v.reshape(B, nkc, kv_chunk, nkv, hd)
+    dev = q.device
+
+    outs = []
+    for qi in range(nqc):
+        qc = q_ch[:, qi]  # (B, qch, nkv, g, hd)
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, nkv, g, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, nkv, g, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, nkv, g, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nkc):
+            kc, vc = k_ch[:, ki], v_ch[:, ki]  # (B, kvch, nkv, hd)
+            s = einsum("bqkgh,bskh->bkgqs", qc, kc).to(torch.float32)
+            if causal:
+                kv_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+                mask = q_pos[:, None] >= kv_pos[None, :]
+                s = torch.where(mask[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l = l * alpha + pexp.sum(-1)
+            acc = acc * alpha[..., None] + einsum(
+                "bkgqs,bskh->bkgqh", pexp.to(vc.dtype), vc
+            ).to(torch.float32)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qch, nkv, g, hd)
+    out = torch.cat(outs, dim=1).reshape(B, Sq, nq, hd)
+    return out.to(v.dtype)
+
+
+def init_cache(cfg, batch, max_len, dtype, *, device=None):
+    hd, nkv = cfg.hd(), cfg.n_kv_heads
+    return {
+        "k": torch.zeros((batch, max_len, nkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, nkv, hd), dtype=dtype, device=device),
+    }

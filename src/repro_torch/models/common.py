@@ -1,0 +1,128 @@
+"""Shared layers: norms, RoPE, initializers, losses.
+
+Port of ``repro/models/common.py``.  Parameters live in ``nn.Module``s
+(``Norm`` here; the attention and MLP modules beside it) under the
+reference's names and ``(d_in, d_out)`` layouts.  The reference's logical
+sharding axes have no counterpart: the port runs on one device.
+
+Mixed dtypes follow the reference's results: torch does not promote
+between bfloat16 and float32 in a matrix product, so :func:`matmul` and
+:func:`einsum` cast both operands to the type JAX would give the result.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype, as ``jnp.matmul`` computes it."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` of two operands: both in the promoted dtype."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def trunc_normal(generator: torch.Generator, shape, scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], drawn in float32 on the
+    generator's device, times ``scale``, cast to ``dtype``."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * scale).to(dtype)
+
+
+def rms_norm(x, w, eps):
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x, w, b, eps):
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w + b
+
+
+class Norm(nn.Module):
+    """RMSNorm (``w``) or LayerNorm (``w``, ``b``) by ``cfg.norm``: the
+    reference's ``make_norm_params`` and ``apply_norm``."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.kind, self.eps = cfg.norm, cfg.norm_eps
+        self.w = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        if self.kind != "rmsnorm":
+            self.b = nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype,
+                                              device=device))
+
+    def forward(self, x):
+        if self.kind == "rmsnorm":
+            return rms_norm(x, self.w, self.eps)
+        return layer_norm(x, self.w, self.b, self.eps)
+
+
+# -- rotary position embeddings ---------------------------------------------
+
+
+def rope_angles(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions: (...,) int -> (..., head_dim//2) float32 angles.
+
+    The inverse frequencies are computed in float64 and rounded to float32
+    before the product, as JAX (64-bit types off) multiplies them."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    inv = torch.from_numpy(inv.astype(np.float32)).to(positions.device)
+    return positions[..., None].to(torch.float32) * inv[None, :]
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    hd = x.shape[-1]
+    ang = rope_angles(hd, theta, positions)  # (B, S, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if cos.ndim == 2:  # (S, hd/2) -> broadcast over batch
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(max_len: int, d: int) -> torch.Tensor:
+    pos = np.arange(max_len)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((max_len, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out)
+
+
+# -- losses ------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits (..., V) any dtype -> fp32 mean NLL over masked positions.
+
+    The label logit is taken by a one-hot contraction, as the reference
+    takes it."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(torch.float32)
+    nll = logz - torch.sum(logits * onehot, dim=-1)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -11,8 +11,12 @@ import torch
 
 import repro_torch.core as T
 import repro_torch.service as TS
+from repro_torch.configs import get_config
 from repro_torch.core import engine, leastcost
 from repro_torch.kernels.minplus import batched
+from repro_torch.launch import placement
+from repro_torch.models import SHAPES, init_model
+from repro_torch.serving import Engine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -44,7 +48,13 @@ def test_every_module_imports_without_jax():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.service", "repro_torch.obs",
-                                    "repro_torch.core.dag"])
+                                    "repro_torch.core.dag",
+                                    "repro_torch.configs",
+                                    "repro_torch.models",
+                                    "repro_torch.models.carry",
+                                    "repro_torch.launch.placement",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.serving"])
 def test_service_obs_and_dag_import_without_jax(module):
     code = (
         "import sys, importlib\n"
@@ -82,6 +92,7 @@ def _tiny():
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rg, df = _tiny()
+    qwen, smoke = get_config("qwen2-0.5b"), get_config("qwen2-0.5b", smoke=True)
     calls = [
         lambda: T.OnlinePlacer(rg),
         lambda: engine.solve(rg, df),
@@ -93,6 +104,11 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         lambda: TS.ControlPlane(rg),
         lambda: TS.ControlPlane(rg, regions=2),
         lambda: TS.ControlPlane(rg, levels=2, regions=4),
+        lambda: placement.plan_pipeline(qwen, SHAPES["train_4k"]),
+        lambda: placement.plan_serving(qwen, SHAPES["decode_32k"]),
+        lambda: init_model(smoke, torch.Generator()),
+        lambda: Engine(smoke, init_model(smoke, torch.Generator(),
+                                         device="cpu")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,0 +1,217 @@
+"""Parity of the port's serving engine (``repro_torch.serving``) and its
+launcher (``repro_torch.launch.serve``) with the JAX reference on the CPU.
+
+Greedy decoding is compared token for token (float32, weights carried by
+``params_from_reference``); the KV caches the engines end with within the
+float32 tolerance of ``test_torch_models.py``.  A draw from
+``jax.random.categorical`` cannot be matched by a torch generator, so
+sampled tokens are checked for support (inside the top-k set) and for
+seeded reproducibility within the port."""
+import contextlib
+import io
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.launch import serve as R_serve
+from repro.models.config import ModelConfig as R_Config
+from repro.models.registry import init_model as R_init
+from repro.serving import Engine as R_Engine
+from repro.serving import Request as R_Request
+from repro.serving import cache_insert as R_cache_insert
+from repro.serving import sample_logits as R_sample_logits
+
+from repro_torch.launch import serve as T_serve
+from repro_torch.models import transformer as T_lm
+from repro_torch.models.carry import params_from_reference
+from repro_torch.models.config import ModelConfig as T_Config
+from repro_torch.serving import Engine, Request, cache_insert, mask_top_k, \
+    sample_logits
+
+# the reference's tests/test_serving.py configuration
+FIELDS = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
+              n_kv_heads=2, d_ff=128, vocab=128, dtype="float32")
+RCFG, TCFG = R_Config(**FIELDS), T_Config(**FIELDS)
+
+
+def _pair(seed):
+    params, _ = R_init(RCFG, jax.random.key(seed))
+    return params, params_from_reference(
+        TCFG, jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 128, size=L).astype(np.int32)
+            for L in (5, 9, 7, 4, 6)]
+
+
+def _straightline_greedy(model, prompt, n_new):
+    toks = list(prompt)
+    with torch.no_grad():
+        for _ in range(n_new):
+            lg, _ = T_lm.lm_forward(TCFG, model, torch.tensor([toks]),
+                                    logits_mode="last")
+            toks.append(int(torch.argmax(lg[0, -1])))
+    return toks[len(prompt):]
+
+
+def test_engine_greedy_tokens_equal_the_reference_engine():
+    """The reference's scenario: 5 prompts through 2 slots, 6 new tokens
+    each.  Same tokens, same finishing order, same ticks; the engines'
+    caches agree (stale per-slot writes of idle slots included)."""
+    params, model = _pair(0)
+    ref = R_Engine(RCFG, params, n_slots=2, max_len=64, temperature=0.0)
+    eng = Engine(TCFG, model, n_slots=2, max_len=64, temperature=0.0,
+                 device="cpu")
+    for i, p in enumerate(_prompts()):
+        ref.submit(R_Request(rid=i, prompt=p, max_new=6))
+        eng.submit(Request(rid=i, prompt=p, max_new=6))
+    rdone, rticks = ref.run()
+    done, ticks = eng.run()
+    assert ticks == rticks
+    assert [(r.rid, r.out) for r in done] == [(r.rid, r.out) for r in rdone]
+    np.testing.assert_array_equal(eng.pos, ref.pos)
+    for k in ("k", "v"):
+        a = np.asarray(ref.cache["attn"][k])
+        b = eng.cache["attn"][k].numpy()
+        assert np.abs(a - b).max() <= 2e-5 * np.abs(a).max(), k
+    # and the port's engine equals its own straight-line greedy
+    for req in done:
+        assert req.out == _straightline_greedy(model, req.prompt, 6), req.rid
+
+
+def test_engine_more_requests_than_slots_samples_in_support():
+    _, model = _pair(1)
+
+    def run(seed):
+        eng = Engine(TCFG, model, n_slots=2, max_len=32, temperature=0.7,
+                     top_k=8, seed=seed, device="cpu")
+        for i in range(5):
+            eng.submit(Request(rid=i, prompt=np.arange(3 + i) % 128,
+                               max_new=4))
+        return eng.run()
+
+    done, _ = run(3)
+    assert len(done) == 5
+    assert all(len(r.out) == 4 for r in done)
+    assert all(0 <= t < 128 for r in done for t in r.out)
+    again, _ = run(3)
+    assert [r.out for r in done] == [r.out for r in again]
+
+
+def test_sampling_support_and_seeding():
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy(rng.normal(0, 2, (6, 300)).astype(np.float32))
+    draws = []
+    for seed in (11, 11, 12):
+        g = torch.Generator().manual_seed(seed)
+        draws.append(torch.stack([sample_logits(g, logits, temperature=0.7,
+                                                top_k=5) for _ in range(50)]))
+    assert torch.equal(draws[0], draws[1])
+    assert not torch.equal(draws[0], draws[2])
+    assert draws[0].dtype == torch.int32
+    for row in range(6):
+        allowed = set(torch.topk(logits[row], 5).indices.tolist())
+        assert set(draws[0][:, row].tolist()) <= allowed
+    # greedy: argmax, the first index on ties, in both packages
+    tied = np.zeros((2, 9), np.float32)
+    tied[0, [2, 5]] = 1.0
+    tied[1, [7, 3]] = 2.0
+    ref = np.asarray(R_sample_logits(jax.random.key(0), jnp.asarray(tied),
+                                     temperature=0.0))
+    port = sample_logits(None, torch.from_numpy(tied), temperature=0.0)
+    np.testing.assert_array_equal(ref, port.numpy())
+    assert port.tolist() == [2, 3]
+
+
+def test_top_k_mask_equals_the_references():
+    """The masked logits of ``serving/engine.py:30-32``, with ties at the
+    k-th value kept."""
+    rng = np.random.default_rng(5)
+    logits = rng.integers(-4, 5, (5, 40)).astype(np.float32) / 2  # ties
+    for k in (1, 3, 8):
+        v, _ = jax.lax.top_k(jnp.asarray(logits), k)
+        ref = jnp.where(jnp.asarray(logits) < v[:, -1:], -1e30,
+                        jnp.asarray(logits))
+        port = mask_top_k(torch.from_numpy(logits), k)
+        np.testing.assert_array_equal(np.asarray(ref), port.numpy())
+
+
+def test_cache_insert_equals_the_references():
+    rng = np.random.default_rng(6)
+    pool = {"attn": {k: rng.normal(size=(2, 3, 5, 1, 4)).astype(np.float32)
+                     for k in ("k", "v")}}
+    one = {"attn": {k: rng.normal(size=(2, 1, 5, 1, 4)).astype(np.float32)
+                    for k in ("k", "v")}}
+    ref = R_cache_insert(jax.tree.map(jnp.asarray, pool),
+                         jax.tree.map(jnp.asarray, one), 1)
+    port = cache_insert(
+        {"attn": {k: torch.from_numpy(v.copy()) for k, v in
+                  pool["attn"].items()}},
+        {"attn": {k: torch.from_numpy(v) for k, v in one["attn"].items()}}, 1)
+    for k in ("k", "v"):
+        np.testing.assert_array_equal(np.asarray(ref["attn"][k]),
+                                      port["attn"][k].numpy())
+
+
+def test_bfloat16_engine_raises_where_the_reference_fails():
+    """The reference engine's float32 cache cannot carry a bfloat16
+    model's activations: its first decode step fails in the layer scan.
+    The port refuses the config up front."""
+    rcfg = RCFG.with_(dtype="bfloat16")
+    params, _ = R_init(rcfg, jax.random.key(0))
+    ref = R_Engine(rcfg, params, n_slots=2, max_len=32)
+    ref.submit(R_Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                         max_new=4))
+    with pytest.raises(TypeError, match="carry"):
+        ref.run()
+    tcfg = TCFG.with_(dtype="bfloat16")
+    model = params_from_reference(tcfg, jax.tree.map(np.asarray, params),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        Engine(tcfg, model, n_slots=2, max_len=32, device="cpu")
+
+
+def test_engine_refuses_unported_families():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(TCFG.with_(family="ssm"), None, device="cpu")
+
+
+def _run_main(main, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue().splitlines()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b"])
+def test_serve_launcher_matches_the_reference(arch):
+    """Same placement line, same request, token and tick counts (the
+    sampled tokens themselves come from different generators)."""
+    argv = ["--arch", arch, "--requests", "3", "--max-new", "5"]
+    ref = _run_main(_argv_main(R_serve.main), argv)
+    port = _run_main(T_serve.main, argv + ["--device", "cpu"])
+    assert ref == port
+    assert port[0].startswith("[placement]")
+
+
+def _argv_main(main):
+    """The reference's ``main`` reads ``sys.argv``."""
+    def run(argv):
+        saved = sys.argv
+        sys.argv = ["serve"] + argv
+        try:
+            main()
+        finally:
+            sys.argv = saved
+    return run
+
+
+def test_serve_launcher_raises_for_enc_dec():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T_serve.main(["--arch", "whisper-medium", "--device", "cpu"])
