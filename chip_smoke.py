@@ -60,7 +60,28 @@ just before and read just after:
   prefill logits of 2 prompts of 32 tokens agree with the same weights on
   the host CPU within 1e-3 x max |logit|, and 8 greedy decode steps agree
   wherever the CPU's top-2 gap exceeds 10x that error.  The model layers
-  run no TPU kernel's port: the reference computes them in plain ``jnp``.
+  run no TPU kernel's port: the reference computes them in plain ``jnp``;
+- the MoE family (phase 11), after phase 10's model is freed:
+  ``launch/serve.py --arch`` deepseek-moe-16b and phi3.5-moe-42b-a6.6b on
+  the card (``plan_serving`` through the superstep kernel, its slices equal
+  to the plain version's, then the SMOKE engine); deepseek-moe-16b at its
+  full width and depth in float32 (28 layers, the dense-first one with
+  d_ff 10944, 64 routed experts top-6 and 2 shared; 16,375,728,128
+  parameters, 65.50 GB, from a generator seeded 2009) under phase 10's
+  load, with the decode step held against the bytes of every weight but
+  the embedding table (19.30 ms) and the active parameters' (3.13 ms), and
+  the pairs the expert capacity drops counted in the first sampled run.
+  Phase 10's straight-line check does not hold under MoE (the capacity
+  counts the whole call's tokens), so its checks are: (a) a one-slot
+  engine's greedy tokens equal ``lm_prefill`` + ``lm_decode_step`` at
+  batch 1 up to the first near tie; (b) the model cut to 3 layers (the
+  dense-first one and 2 MoE) at full width on the card against its copy on
+  the host CPU: prefill logits within 1e-3 x max |logit|, greedy decode,
+  and every MoE call's routing equal but for tokens whose k-th and
+  (k+1)-th router probabilities lie within 1e-5 of each other; (c) one
+  full-width phi3.5-moe layer (16 experts 4096 -> 6400, top-2) on the card
+  against the CPU at T = 8 and 256 tokens, output within 1e-3 x max |out|
+  and routing equal, with its drops at T = 256 printed.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -70,7 +91,10 @@ power limit; and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
+import io
 import json
 import subprocess
 import sys
@@ -1235,27 +1259,33 @@ def straightline_check(lm, cfg, model, req, device, tag):
     return len(req.out)
 
 
-def greedy_decode(lm, cfg, model, prompts, steps, device):
-    """lm_prefill then ``steps`` greedy lm_decode_step calls at batch
-    len(prompts); returns the prefill logits and per-step (tokens, logits)."""
+def greedy_decode(lm, cfg, model, prompts, steps, device, max_len=None):
+    """lm_prefill then greedy lm_decode_step calls at batch len(prompts)
+    for ``steps`` tokens, over a cache of ``max_len`` (default: just long
+    enough); returns the prefill logits and per-step (tokens, logits)."""
     B, S = prompts.shape
-    cache = lm.init_lm_cache(cfg, B, S + steps, torch.float32, device=device)
+    cache = lm.init_lm_cache(cfg, B, max_len or S + steps, torch.float32,
+                             device=device)
     tok = torch.from_numpy(prompts).to(device)
     first, cache = lm.lm_prefill(cfg, model, tok, cache)
     out, logits = [], first[:, -1]
     for i in range(steps):
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append((nxt.cpu(), logits.float().cpu()))
-        lg, cache = lm.lm_decode_step(cfg, model, nxt[:, None], cache, S + i)
-        logits = lg[:, -1]
+        if i + 1 < steps:
+            lg, cache = lm.lm_decode_step(cfg, model, nxt[:, None], cache,
+                                          S + i)
+            logits = lg[:, -1]
     return first[:, -1].float().cpu(), out
 
 
-def host_check(lm, cfg, model, rng, device, tag):
+def host_check(lm, cfg, model, rng, device, tag, host=None):
     """Prefill logits on the device against the same weights on the host
-    CPU (float32), then greedy decoding on both."""
-    host = lm.LM(cfg, device="cpu")
-    host.load_state_dict(model.state_dict())
+    CPU (float32; ``host``, or a copy made here), then greedy decoding on
+    both."""
+    if host is None:
+        host = lm.LM(cfg, device="cpu")
+        host.load_state_dict(model.state_dict())
     prompts = rng.integers(0, cfg.vocab, (HOST_PROMPTS, HOST_PROMPT_LEN)
                            ).astype(np.int32)
     dev_first, dev_steps = greedy_decode(lm, cfg, model, prompts,
@@ -1286,39 +1316,43 @@ def host_check(lm, cfg, model, rng, device, tag):
     return err, scale
 
 
-def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
-                  requests=SERVE_REQUESTS, max_new=SERVE_NEW,
-                  slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                  prompt_lens=PROMPT_LENS):
-    """``launch/serve.py``'s path at full width: the model from a seeded
-    generator, the continuous-batching engine (greedy, then the launcher's
-    sampling setting twice), and its correctness checks."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as lm
+def draw_model(tag, cfg, device):
+    """``cfg``'s model from a generator seeded ``SEED`` on ``device``, and
+    its parameter count."""
     from repro_torch.models.registry import init_model
-    from repro_torch.serving import Engine, Request
 
-    if torch.device(device).type == "cuda":
-        # full-precision float32 products for the comparison with the host
-        assert not torch.backends.cuda.matmul.allow_tf32
-        torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(arch, smoke=smoke).with_(dtype="float32")
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    model = init_model(cfg, gen, device=device)
+    model = init_model(cfg, torch.Generator(device=device).manual_seed(SEED),
+                       device=device)
     sync(device)
     n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = 4 * n_params
-    bound_ms = 1e3 * weight_bytes / HBM_BYTES_S
-    print(f"[{tag}] serving {cfg.name} float32 on {device}: {cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
-          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
-          f"({weight_bytes / 1e9:.3f} GB) drawn in "
+    print(f"[{tag}] {cfg.name} float32 on {device}: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+          f"({4 * n_params / 1e9:.3f} GB) drawn in "
           f"{time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, requests)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-               for n in lens]
+    return model, n_params
+
+
+def decode_bound_ms(cfg, n_params):
+    """The least time of a decode step: the bytes of every weight it reads
+    (all but an untied embedding table, of which it gathers a few rows)
+    over the HBM rate."""
+    table = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    return 1e3 * 4 * (n_params - table) / HBM_BYTES_S
+
+
+def serve_load(tag, cfg, model, prompts, device, *, max_new, slots, max_len,
+               bound_ms, bound_note="", watch=None):
+    """The engine serves ``prompts`` greedily, timed (tokens/s, decode step
+    percentiles, prefill by 64-token bucket, peak memory), then the first
+    ``SAMPLED`` at launch/serve.py's sampling setting, twice from one seed,
+    identical; ``watch(model)``, if given, is entered around the first
+    sampled run.  Returns the stats and the greedy requests."""
+    from repro_torch.serving import Engine, Request
+
+    requests = len(prompts)
+    lens = np.array([len(p) for p in prompts])
 
     def engine(temperature, top_k):
         return Engine(cfg, model, n_slots=slots, max_len=max_len,
@@ -1343,6 +1377,7 @@ def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
     done, ticks = eng.run()
     sync(device)
     wall = time.perf_counter() - t0
+    del eng
     assert len(done) == requests and all(len(r.out) == max_new for r in done)
     assert all(0 <= t < cfg.vocab for r in done for t in r.out)
     generated = sum(len(r.out) for r in done)
@@ -1365,7 +1400,8 @@ def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
         "prefill_ms_by_len": {k: [len(v), float(np.median(v))]
                               for k, v in buckets.items()},
         "prefill_ms_total": float(sum(ms for _, ms in by_len)),
-        "peak_device_bytes": peak, "weight_bytes": weight_bytes,
+        "peak_device_bytes": peak,
+        "weight_bytes": 4 * sum(p.numel() for p in model.parameters()),
     }
     print(f"[{tag}] engine, greedy: {requests} requests (prompts "
           f"{lens.min()}-{lens.max()} tokens), {slots} slots, max_len "
@@ -1373,23 +1409,58 @@ def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
           f"{generated} tokens, {stats['tokens_per_s']:.1f} tokens/s, "
           f"{ticks} ticks; decode step p50 {stats['decode_step_ms_p50']:.3f} "
           f"ms p95 {stats['decode_step_ms_p95']:.3f} ms against a bound of "
-          f"{bound_ms:.3f} ms (the weights' bytes over {HBM_BYTES_S / 1e12} "
-          f"TB/s); prefill total {stats['prefill_ms_total']:.1f} ms, median "
-          f"ms by prompt length [count, ms] {stats['prefill_ms_by_len']}; "
-          f"peak device memory {peak}")
+          f"{bound_ms:.3f} ms (the bytes of the weights a step reads over "
+          f"{HBM_BYTES_S / 1e12} TB/s){bound_note}; prefill total "
+          f"{stats['prefill_ms_total']:.1f} ms, median ms by prompt length "
+          f"[count, ms] {stats['prefill_ms_by_len']}; peak device memory "
+          f"{peak}")
 
     # serve.py's sampling setting, twice from the same seed
     runs = []
-    for _ in range(2):
+    for i in range(2):
         e = engine(SAMPLE_T, SAMPLE_TOP_K)
-        for i, prompt in enumerate(prompts[:SAMPLED]):
-            e.submit(Request(rid=i, prompt=prompt, max_new=max_new))
-        out, _ = e.run()
+        for rid, prompt in enumerate(prompts[:SAMPLED]):
+            e.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        if watch is not None and i == 0:
+            with watch(model):
+                out, _ = e.run()
+        else:
+            out, _ = e.run()
         runs.append([(r.rid, r.out) for r in out])
     assert runs[0] == runs[1], "sampled outputs differ between seeded runs"
     assert all(0 <= t < cfg.vocab for _, o in runs[0] for t in o)
     print(f"[{tag}] engine, temperature {SAMPLE_T} top_k {SAMPLE_TOP_K}: "
           f"{len(runs[0])} requests, two runs from seed {SEED} identical")
+    return stats, done
+
+
+def serve_prompts(cfg, rng, requests, prompt_lens):
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, requests)
+    return [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
+                  requests=SERVE_REQUESTS, max_new=SERVE_NEW,
+                  slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                  prompt_lens=PROMPT_LENS):
+    """``launch/serve.py``'s path at full width: the model from a seeded
+    generator, the continuous-batching engine (greedy, then the launcher's
+    sampling setting twice), and its correctness checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as lm
+
+    if torch.device(device).type == "cuda":
+        # full-precision float32 products for the comparison with the host
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32")
+    model, n_params = draw_model(tag, cfg, device)
+    rng = np.random.default_rng(SEED)
+    prompts = serve_prompts(cfg, rng, requests, prompt_lens)
+    bound_ms = decode_bound_ms(cfg, n_params)
+    stats, done = serve_load(tag, cfg, model, prompts, device,
+                             max_new=max_new, slots=slots, max_len=max_len,
+                             bound_ms=bound_ms)
 
     # (a) the engine against a straight-line greedy
     steps = [straightline_check(lm, cfg, model, r, device, tag)
@@ -1404,11 +1475,280 @@ def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE family — deepseek-moe-16b at full width and depth
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")  # launcher runs
+MOE_ARCH = "deepseek-moe-16b"  # served at full width and depth
+MOE_LAYER_ARCH = "phi3.5-moe-42b-a6.6b"  # one full-width layer, check (c)
+BOOKKEEPING_CHECKS = 4  # check (a): requests served through one slot
+MOE_HOST_DEPTH = 3  # check (b): the dense-first layer and 2 MoE layers
+MOE_LAYER_TOKENS = (8, 256)  # check (c)
+ROUTE_TIE = 1e-5  # k-th vs (k+1)-th router probability, relative
+
+
+def launcher_phase(tk, tag, arch):
+    """``launch/serve.py --arch arch`` on the card: ``plan_serving``
+    through the superstep kernel (its slices equal to the plain version's),
+    then the arch's SMOKE engine.  Returns the kernel's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import placement as pl
+    from repro_torch.launch import serve
+    from repro_torch.models.config import SHAPES
+
+    out = io.StringIO()
+    tk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", arch])
+    sync("cuda")
+    wall = time.perf_counter() - t0
+    launches = tk.LAUNCHES
+    assert launches > 0, f"launch/serve.py --arch {arch} launched no superstep"
+    lines = out.getvalue().splitlines()
+    plain = pl.plan_serving(get_config(arch), SHAPES["decode_32k"],
+                            pl.PodTopology(pods=1), requests_per_sec=100.0,
+                            device="cuda", kernel_impl="plain")
+    assert lines[0] == f"[placement] decode dataflow -> slices " \
+        f"{plain.stage_slices}", (lines, plain)
+    assert lines[-1].startswith(f"{arch}: served 4 requests"), lines
+    print(f"[{tag}] launch/serve.py --arch {arch}: {lines}; {launches} "
+          f"superstep launches (slices == kernel_impl='plain'); wall "
+          f"{wall:.2f} s")
+    return launches
+
+
+def count_drops(moe_mod, log, slots):
+    """A context that counts, on the device, the (token, expert) pairs each
+    MoE layer of a model drops while it is entered, split into decode ticks
+    (``slots`` tokens) and prefills: a forward pre-hook reruns the port's
+    routing on the layer's input."""
+    @contextlib.contextmanager
+    def watch(model):
+        def hook(mod, args):
+            x = args[0]
+            T = x.shape[0] * x.shape[1]
+            r = moe_mod.route(mod.cfg, mod.router, x.reshape(T, -1))
+            key = "tick" if T == slots else "prefill"
+            log.setdefault(key, []).append((~r.keep).sum())
+            log.setdefault(key + "_pairs", []).append(r.keep.numel())
+
+        handles = [b.moe.register_forward_pre_hook(hook)
+                   for b in model.blocks]
+        try:
+            yield
+        finally:
+            for h in handles:
+                h.remove()
+    return watch
+
+
+def route_log(moe_mod, model, log):
+    """Hooks recording each MoE call's routing (on the host) into ``log``."""
+    def hook(mod, args):
+        x = args[0]
+        r = moe_mod.route(mod.cfg, mod.router, x.reshape(-1, x.shape[-1]))
+        log.append(r._replace(probs=r.probs.cpu(), gate_vals=None,
+                              gate_idx=r.gate_idx.cpu(), slot=r.slot.cpu(),
+                              keep=r.keep.cpu()))
+    return [b.moe.register_forward_pre_hook(hook) for b in model.blocks]
+
+
+def same_routing(dev, cpu, k, what):
+    """Each call's routing on the card equals the CPU's: per token the
+    same (expert, slot) pairs (the order of a token's k experts aside),
+    except at tokens whose k-th and (k+1)-th CPU router probabilities lie
+    within ``ROUTE_TIE`` of each other, relative, which are reported and
+    left out; after a near-tied token that did flip, the slots of its two
+    experts shift, so only the tokens before it are held to equal slots.
+    Returns (tokens compared, near ties, near ties that flipped)."""
+    assert len(dev) == len(cpu), (what, len(dev), len(cpu))
+    compared = ties = flipped = 0
+    for call, (d, c) in enumerate(zip(dev, cpu)):
+        T = c.gate_idx.shape[0]
+        top = torch.sort(c.probs, dim=-1, descending=True).values
+        tie = top[:, k - 1] - top[:, k] <= ROUTE_TIE * top[:, k - 1]
+        d_idx, d_ord = torch.sort(d.gate_idx, dim=-1)
+        c_idx, c_ord = torch.sort(c.gate_idx, dim=-1)
+        d_slot = d.slot.view(T, k).gather(1, d_ord)
+        c_slot = c.slot.view(T, k).gather(1, c_ord)
+        same = (d_idx == c_idx).all(-1)
+        bad = ~same & ~tie
+        assert not bad.any(), (what, call, bad.nonzero()[:, 0].tolist())
+        upto = T if bool(same.all()) else int((~same).nonzero()[0, 0])
+        assert torch.equal(d_slot[:upto], c_slot[:upto]), (what, call, upto)
+        if bool(tie.any()):
+            print(f"    {what}, call {call}: near-tied tokens "
+                  f"{tie.nonzero()[:, 0].tolist()} left out"
+                  + (f"; flipped at token {upto}" if upto < T else ""))
+        compared += int((~tie).sum())
+        ties += int(tie.sum())
+        flipped += int((~same).sum())
+    return compared, ties, flipped
+
+
+def bookkeeping_check(lm, cfg, model, prompts, device, tag):
+    """(a) A one-slot engine's greedy tokens against ``lm_prefill`` +
+    ``lm_decode_step`` at batch 1 over a cache of the same length: both
+    route the same T tokens per call, so they drop the same pairs.  Equal
+    up to the first near tie (top-2 gap at most 1e-3 x max |logit|)."""
+    from repro_torch.serving import Engine, Request
+
+    eng = Engine(cfg, model, n_slots=1, max_len=SERVE_MAX_LEN,
+                 temperature=0.0, device=device)
+    for i, p in enumerate(prompts[:BOOKKEEPING_CHECKS]):
+        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
+    done, _ = eng.run()
+    steps = []
+    for req in sorted(done, key=lambda r: r.rid):
+        _, want = greedy_decode(lm, cfg, model, req.prompt[None], SERVE_NEW,
+                                device, max_len=SERVE_MAX_LEN)
+        n = len(req.out)
+        for i, (got, (tok, logits)) in enumerate(zip(req.out, want)):
+            gap, scale = top2_gap(logits[0]), float(logits[0].abs().max())
+            if gap <= 1e-3 * scale:
+                print(f"[{tag}] request {req.rid}: near tie at step {i} "
+                      f"(top-2 gap {gap:.3g}, max |logit| {scale:.3g})")
+                n = i
+                break
+            assert got == int(tok[0]), (req.rid, i, got, int(tok[0]), gap)
+        steps.append(n)
+    print(f"[{tag}] (a) one-slot engine greedy == lm_prefill + "
+          f"lm_decode_step at batch 1 over {steps} of {SERVE_NEW} steps of "
+          f"requests 0-{BOOKKEEPING_CHECKS - 1}")
+    return steps
+
+
+def moe_serving_phase(tag, *, device="cuda", arch=MOE_ARCH, smoke=False,
+                      requests=SERVE_REQUESTS, max_new=SERVE_NEW,
+                      slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      prompt_lens=PROMPT_LENS):
+    """Phase 10's load on the MoE model at full width and depth, with the
+    dropped pairs of the first sampled run counted, then check (a)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as lm
+
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32")
+    model, n_params = draw_model(tag, cfg, device)
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    rng = np.random.default_rng(SEED)
+    prompts = serve_prompts(cfg, rng, requests, prompt_lens)
+    bound_ms = decode_bound_ms(cfg, n_params)
+    active_ms = decode_bound_ms(cfg, cfg.active_param_count())
+    drops = {}
+    stats, _ = serve_load(
+        tag, cfg, model, prompts, device, max_new=max_new, slots=slots,
+        max_len=max_len, bound_ms=bound_ms,
+        bound_note=(f"; {active_ms:.3f} ms for the active parameters alone, "
+                    f"what a dispatch reading only the routed experts would "
+                    f"need (the E x C dispatch runs every expert every "
+                    f"tick)"),
+        watch=count_drops(moe_mod, drops, slots))
+    stats["decode_active_bound_ms"] = active_ms
+    for key in ("tick", "prefill"):
+        got = [int(n) for n in drops.get(key, [])]
+        stats[f"dropped_per_{key}"] = [sum(got),
+                                       sum(drops.get(key + "_pairs", [])),
+                                       len(got)]
+    print(f"[{tag}] dropped (token, expert) pairs in the first sampled run "
+          f"[dropped, pairs, MoE calls]: decode ticks "
+          f"{stats['dropped_per_tick']}, prefills "
+          f"{stats['dropped_per_prefill']}")
+    stats["bookkeeping_steps"] = bookkeeping_check(lm, cfg, model, prompts,
+                                                   device, tag)
+    return stats
+
+
+def moe_host_phase(tag, *, device="cuda", arch=MOE_ARCH, smoke=False,
+                   depth=MOE_HOST_DEPTH):
+    """(b) The MoE model at full width and depth ``depth`` on the card
+    against its copy on the host CPU: prefill logits, greedy decode and
+    every MoE call's routing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as lm
+
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32",
+                                              n_layers=depth)
+    model, n_params = draw_model(tag, cfg, device)
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    host = lm.LM(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    logs = {"dev": [], "cpu": []}
+    hooks = (route_log(moe_mod, model, logs["dev"])
+             + route_log(moe_mod, host, logs["cpu"]))
+    try:
+        err, scale = host_check(lm, cfg, model, np.random.default_rng(SEED),
+                                device, tag, host=host)
+    finally:
+        for h in hooks:
+            h.remove()
+    compared, ties, flipped = same_routing(logs["dev"], logs["cpu"],
+                                           cfg.moe.top_k, "(b)")
+    print(f"[{tag}] (b) {cfg.name} at depth {depth} ({cfg.param_count()} "
+          f"parameters), {device} vs host CPU: routing equal over "
+          f"{len(logs['dev'])} MoE calls, {compared} tokens compared, "
+          f"{ties} near ties left out ({flipped} flipped)")
+    return {"host_max_abs_err": err, "host_max_logit": scale,
+            "routing_tokens": compared, "routing_near_ties": ties,
+            "routing_flipped": flipped}
+
+
+def moe_layer_phase(tag, *, device="cuda", arch=MOE_LAYER_ARCH, smoke=False,
+                    tokens=MOE_LAYER_TOKENS):
+    """(c) One full-width MoE layer of ``arch`` on the card against the
+    same weights on the host CPU, on seeded inputs of each token count:
+    the output within 1e-3 x max |out| and the routing equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import draw_weights
+
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32")
+    layer = draw_weights(moe_mod.MoE(cfg, device=device),
+                         torch.Generator(device=device).manual_seed(SEED))
+    n_params = sum(p.numel() for p in layer.parameters())
+    host = moe_mod.MoE(cfg, device="cpu")
+    host.load_state_dict(layer.state_dict())
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for T in tokens:
+        x = rng.normal(0, 1, (1, T, cfg.d_model)).astype(np.float32)
+        res = {}
+        for dev, mod in ((device, layer), ("cpu", host)):
+            xt = torch.from_numpy(x).to(dev)
+            with torch.no_grad():
+                y, aux = moe_mod.moe_block(cfg, mod, xt)
+                r = moe_mod.route(cfg, mod.router, xt[0])
+            res[dev] = (y.cpu(), float(aux), r._replace(
+                probs=r.probs.cpu(), gate_idx=r.gate_idx.cpu(),
+                slot=r.slot.cpu(), keep=r.keep.cpu()))
+        (yd, auxd, rd), (yc, auxc, rc) = res[device], res["cpu"]
+        err, scale = float((yd - yc).abs().max()), float(yc.abs().max())
+        assert err <= 1e-3 * scale, (T, err, scale)
+        compared, ties, flipped = same_routing([rd], [rc], cfg.moe.top_k,
+                                               f"(c) T={T}")
+        dropped = int((~rc.keep).sum())
+        print(f"[{tag}] (c) {cfg.name} MoE layer ({n_params} parameters, "
+              f"{cfg.moe.n_experts} experts {cfg.d_model} -> "
+              f"{cfg.moe.d_ff_expert}, top-{cfg.moe.top_k}) at T={T}: "
+              f"{device} vs host CPU max abs err {err:.3g}, max |out| "
+              f"{scale:.3g} (limit {1e-3 * scale:.3g}); aux {auxd:.6g} vs "
+              f"{auxc:.6g}; routing equal over {compared} tokens, {ties} "
+              f"near ties ({flipped} flipped); capacity {rc.capacity}, "
+              f"{dropped} of {rc.keep.numel()} pairs dropped")
+        out[T] = {"max_abs_err": err, "max_out": scale, "dropped": dropped,
+                  "pairs": rc.keep.numel(), "capacity": rc.capacity}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     sys.path.insert(0, str(root / "tests"))  # the kernels' seeded test cases
@@ -1609,6 +1949,30 @@ def main() -> int:
     print(f"[{tag}] serving: {json.dumps(serving)}")
     print(f"[{tag}] phase 10 wall {time.perf_counter() - t0:.2f} s")
 
+    # -- phase 11: the MoE family -----------------------------------------
+    # phase 10's model and engines went with serving_phase's frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 2**30, torch.cuda.memory_allocated()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launcher_launches = {a: launcher_phase(tk, tag, a) for a in MOE_ARCHS}
+    moe = moe_serving_phase(tag)
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert moe["peak_device_bytes"] < total, (moe["peak_device_bytes"], total)
+    for check in (moe_host_phase, moe_layer_phase):
+        gc.collect()  # the last model goes before the next allocates
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() < 2**30, \
+            torch.cuda.memory_allocated()
+        moe["host" if check is moe_host_phase else "layer"] = check(tag)
+    moe["launcher_launches"] = launcher_launches
+    print(f"[{tag}] moe serving: {json.dumps(moe)}")
+    print(f"[{tag}] phase 11 wall {time.perf_counter() - t0:.2f} s; peak "
+          f"device memory {moe['peak_device_bytes']} of {total}; script "
+          f"wall so far {time.perf_counter() - t_script:.2f} s")
+
     print(json.dumps({"kernels": [{
         "name": "batched_superstep",
         "route": "cuda",
@@ -1627,6 +1991,7 @@ def main() -> int:
             "admission": launches, "control_plane": plane_launches,
             **{f"trace_{label}": r["launches"] for label, r in trace.items()},
             "placement": placement_launches,
+            **{f"serve_launcher_{a}": n for a, n in launcher_launches.items()},
         },
         "region_local": {B: {k: t[k] for k in (
             "n", "K", "launches", "ms", "plain_ms", "bound_ms", "bound_by",

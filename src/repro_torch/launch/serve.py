@@ -1,7 +1,7 @@
 """Serving launcher: placement of the decode dataflow, then prefill +
 continuous-batching decode of an assigned arch at smoke scale.
 
-Port of ``repro/launch/serve.py`` for the dense and VLM families:
+Port of ``repro/launch/serve.py`` for the dense, VLM and MoE families:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 4                      # on the CUDA device
@@ -10,6 +10,9 @@ Port of ``repro/launch/serve.py`` for the dense and VLM families:
 
 As in the reference, ``--smoke`` cannot be turned off: the model served is
 the arch's ``SMOKE`` config, with weights drawn from a seeded generator.
+Under an MoE arch the slots share the experts' capacity buffers, so a
+request's tokens depend on the other requests in flight (see
+``serving/engine.py``).
 """
 from __future__ import annotations
 

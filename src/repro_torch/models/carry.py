@@ -2,7 +2,10 @@
 
 The reference keeps a model's parameters as a pytree of arrays with the
 layers stacked: ``tree["blocks"]["attn"]["wq"]`` is (L, d, nq * hd).  The
-port's ``LM`` names the same array of layer ``l`` ``blocks.{l}.attn.wq``.
+port's ``LM`` names the same array of layer ``l`` ``blocks.{l}.attn.wq``;
+DeepSeekMoE's ``dense_blocks`` stack the same way, and an MoE layer's
+expert weights ``tree["blocks"]["moe"]["wi"]`` (L, E, d, f) become
+``blocks.{l}.moe.wi`` (E, d, f).
 Both sides cross as numpy arrays, so nothing here imports the JAX package:
 
 - :func:`params_from_reference` builds the port's model from the
@@ -19,7 +22,9 @@ import torch
 
 from ..core.problem import resolve_device
 from .config import ModelConfig
-from .transformer import PENDING, LM
+from .transformer import LM
+
+STACKED = ("dense_blocks", "blocks")  # the reference's layer-stacked subtrees
 
 
 def _leaves(tree, path=()):
@@ -39,21 +44,18 @@ def _to_torch(arr) -> torch.Tensor:
 
 def params_from_reference(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
     """The port's model holding the reference's parameters ``tree`` (numpy
-    arrays; bfloat16 ones as JAX hands them to numpy), cast to
-    ``cfg.dtype``, on ``device``."""
+    arrays; bfloat16 ones as JAX hands them to numpy), cast to the dtype
+    of the port's parameter (``cfg.dtype``; the MoE router float32), on
+    ``device``."""
     dev = resolve_device(device)
-    if "dense_blocks" in tree:
-        raise NotImplementedError(
-            "the dense-first layers of DeepSeekMoE are not ported yet "
-            f"(ROADMAP.md, Queue 1 {PENDING['moe']})")
     model = LM(cfg, device=dev)
     params = dict(model.named_parameters())
     filled = set()
     with torch.no_grad():
         for path, arr in _leaves(tree):
             t = _to_torch(arr)
-            if path[0] == "blocks":
-                names = [".".join(("blocks", str(i)) + path[1:])
+            if path[0] in STACKED:
+                names = [".".join((path[0], str(i)) + path[1:])
                          for i in range(t.shape[0])]
                 parts = list(t)
             else:
@@ -81,8 +83,8 @@ def params_to_numpy(model: LM) -> dict:
     for name, p in model.named_parameters():
         a = p.detach().to(device="cpu", dtype=torch.float32).numpy()
         parts = name.split(".")
-        if parts[0] == "blocks":
-            stacked.setdefault(("blocks",) + tuple(parts[2:]), []).append(a)
+        if parts[0] in STACKED:
+            stacked.setdefault((parts[0],) + tuple(parts[2:]), []).append(a)
             continue
         _put(tree, tuple(parts), a)
     for path, layers in stacked.items():

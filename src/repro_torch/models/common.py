@@ -42,6 +42,20 @@ def trunc_normal(generator: torch.Generator, shape, scale: float,
     return (t * scale).to(dtype)
 
 
+def draw_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every matrix of ``module`` from ``generator`` in place, as the
+    reference's initializers do: truncated normals at ``d_in ** -0.5``
+    (``d_in`` the second-to-last axis, so a stacked expert tensor (E, d_in,
+    d_out) too), the ``embed`` table at 0.02.  Vectors keep their values
+    (biases zero, norm weights one)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.ndim >= 2:
+                scale = 0.02 if name == "embed" else p.shape[-2] ** -0.5
+                p.copy_(trunc_normal(generator, p.shape, scale, p.dtype))
+    return module
+
+
 def rms_norm(x, w, eps):
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)

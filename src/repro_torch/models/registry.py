@@ -22,8 +22,8 @@ from .config import ModelConfig, ShapeConfig
 def init_model(cfg: ModelConfig, generator: torch.Generator, *,
                device=None) -> lm_mod.LM:
     """The model of ``cfg`` with weights drawn from ``generator``, on
-    ``device`` (CUDA unless the caller asks for the CPU).  Dense and VLM
-    only: the other families raise ``NotImplementedError``."""
+    ``device`` (CUDA unless the caller asks for the CPU).  Dense, VLM and
+    MoE only: the other families raise ``NotImplementedError``."""
     return lm_mod.init_lm(cfg, generator, device=resolve_device(device))
 
 

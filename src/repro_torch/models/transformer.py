@@ -1,17 +1,21 @@
-"""Decoder-only LM assembly for the dense and VLM families.
+"""Decoder-only LM assembly for the dense, VLM and MoE families.
 
 Port of ``repro/models/transformer.py``.  The model is an ``LM`` module
-holding an ``nn.ModuleList`` of ``Block``s (norms, attention, MLP); the
-reference's functional names (``init_lm``, ``lm_forward``,
+holding ``nn.ModuleList``s of ``Block``s (norms, attention, and an MLP or
+an MoE); the reference's functional names (``init_lm``, ``lm_forward``,
 ``init_lm_cache``, ``lm_decode_step``, ``lm_prefill``) are thin functions
 over it.  Parameters keep the reference's names and ``(d_in, d_out)``
 layouts: the reference's stacked ``blocks/attn/wq[l]`` is the port's
 ``blocks.{l}.attn.wq`` (``carry.py`` converts between the two).
 
+DeepSeekMoE's leading dense layers are ``dense_blocks``, the MoE layers
+after them ``blocks``; both share one KV cache, the dense layers its
+leading ``first_dense_layers`` slices.
+
 The reference scans its layers under remat; the port runs them in a Python
 loop, eagerly.  The VLM's image frontend is a stub in both: precomputed
-patch embeddings are prepended to the text tokens.  The MoE, SSM and hybrid
-families, and the dense-first prefix of DeepSeekMoE, are not ported yet.
+patch embeddings are prepended to the text tokens.  The SSM, hybrid and
+enc-dec families are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,18 +23,18 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
-from .common import Norm, dtype_of, matmul, trunc_normal
+from .common import Norm, draw_weights, dtype_of, matmul
 from .config import ModelConfig
 from .mlp import MLP
+from .moe import MoE
 
 # Where each family not served by the dense block waits (ROADMAP.md, Queue 1).
 PENDING = {
-    "moe": "item 12a, models/moe.py",
     "ssm": "item 12b, models/ssm.py",
     "hybrid": "item 12c, the zamba2 hybrid",
     "encdec": "item 12d, models/encdec.py",
 }
-PORTED = ("dense", "vlm")
+PORTED = ("dense", "vlm", "moe")
 
 
 def check_family(cfg: ModelConfig):
@@ -45,38 +49,53 @@ def check_family(cfg: ModelConfig):
 
 
 class Block(nn.Module):
-    """One pre-norm transformer block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One pre-norm transformer block: ``ln1``, ``attn``, ``ln2``, and
+    ``mlp`` (hidden size ``d_ff``, default ``cfg.d_ff``) or, with
+    ``moe=True``, ``moe``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, moe: bool = False,
+                 d_ff: int | None = None, device=None):
         super().__init__()
         dt = dtype_of(cfg.dtype)
         self.ln1 = Norm(cfg, dtype=dt, device=device)
         self.attn = attn_mod.Attention(cfg, device=device)
         self.ln2 = Norm(cfg, dtype=dt, device=device)
-        self.mlp = MLP(cfg, device=device)
+        if moe:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = MLP(cfg, d_ff, device=device)
+
+    def _ffn(self, x):
+        """The residual after the MLP or MoE, and the MoE's aux loss (None
+        for an MLP)."""
+        if hasattr(self, "mlp"):
+            return x + self.mlp(self.ln2(x)), None
+        out, aux = self.moe(self.ln2(x))
+        return x + out, aux
 
     def forward(self, x, positions, *, q_chunk, kv_chunk, cache=None):
-        """The reference's ``_dense_block_fwd``; with ``cache`` (this
-        layer's k/v, batch-first) the block's k/v are written into it from
-        position 0, as ``lm_prefill``'s scan body does."""
+        """The reference's ``_dense_block_fwd``: returns (x, aux).  With
+        ``cache`` (this layer's k/v, batch-first) the block's k/v are
+        written into it from position 0, as ``lm_prefill``'s scan body
+        does."""
         h, (k, v) = self.attn(self.ln1(x), positions, q_chunk=q_chunk,
                               kv_chunk=kv_chunk)
         if cache is not None:
             attn_mod._update_slice(cache["k"], k, 0)
             attn_mod._update_slice(cache["v"], v, 0)
-        x = x + h
-        return x + self.mlp(self.ln2(x))
+        return self._ffn(x + h)
 
     def decode(self, x, cache, pos):
         h, _ = self.attn.decode(self.ln1(x), cache, pos)
-        x = x + h
-        return x + self.mlp(self.ln2(x))
+        return self._ffn(x + h)[0]
 
 
 class LM(nn.Module):
-    """``embed`` (V, d), ``blocks``, ``final_norm`` and, untied,
-    ``lm_head`` (d, V).  Weights are allocated, not drawn: ``init_lm``
-    draws them, ``carry.params_from_reference`` copies them."""
+    """``embed`` (V, d), for DeepSeekMoE ``dense_blocks`` (its
+    ``first_dense_layers`` dense layers of hidden size ``d_ff_dense``),
+    ``blocks``, ``final_norm`` and, untied, ``lm_head`` (d, V).  Weights
+    are allocated, not drawn: ``init_lm`` draws them,
+    ``carry.params_from_reference`` copies them."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -85,8 +104,14 @@ class LM(nn.Module):
         dt = dtype_of(cfg.dtype)
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model,
                                               dtype=dt, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.n_layers))
+        moe = cfg.family == "moe"
+        nd = cfg.moe.first_dense_layers if moe else 0
+        if nd:
+            self.dense_blocks = nn.ModuleList(
+                Block(cfg, d_ff=cfg.moe.d_ff_dense or cfg.d_ff, device=device)
+                for _ in range(nd))
+        self.blocks = nn.ModuleList(Block(cfg, moe=moe, device=device)
+                                    for _ in range(cfg.n_layers - nd))
         self.final_norm = Norm(cfg, dtype=dt, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab,
@@ -105,12 +130,21 @@ class LM(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return matmul(x, head)
 
+    def layers(self):
+        """Every block in cache order: the dense-first ones, then the rest."""
+        return [*getattr(self, "dense_blocks", ()), *self.blocks]
+
     def forward(self, tokens, *, patch_embeds=None, q_chunk=512,
                 kv_chunk=1024, logits_mode="all"):
         x, positions = self._inputs(tokens, patch_embeds)
-        for blk in self.blocks:
-            x = blk(x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        auxs = []
+        for blk in self.layers():
+            x, aux = blk(x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            if aux is not None:
+                auxs.append(aux)
+        # the MoE layers' summed aux loss (the dense-first layers add none)
+        aux = (torch.stack(auxs).sum() if auxs else
+               torch.zeros((), dtype=torch.float32, device=x.device))
         x = self.final_norm(x)
         if logits_mode == "none":
             return x, aux
@@ -122,16 +156,16 @@ class LM(nn.Module):
                 kv_chunk=1024):
         x, positions = self._inputs(tokens, patch_embeds)
         ck = cache["attn"]
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                    cache={"k": ck["k"][i], "v": ck["v"][i]})
+        for i, blk in enumerate(self.layers()):
+            x, _ = blk(x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                       cache={"k": ck["k"][i], "v": ck["v"][i]})
         x = self.final_norm(x[:, -1:])
         return self._head(x), cache
 
     def decode_step(self, token, cache, pos):
         x = self.embed[token.long()]
         ck = cache["attn"]
-        for i, blk in enumerate(self.blocks):
+        for i, blk in enumerate(self.layers()):
             y = blk.decode(x, {"k": ck["k"][i], "v": ck["v"][i]}, pos)
             if y.dtype != x.dtype:
                 # The reference scans the layers with x as the carry and
@@ -159,16 +193,11 @@ def _check_model(cfg: ModelConfig, model: LM):
 def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
             device=None) -> LM:
     """The model with weights drawn from ``generator``: truncated normals,
-    the embedding at scale 0.02 and every matrix at ``d_in ** -0.5``, as
-    the reference draws them (its random stream is JAX's and is not
-    reproduced); biases zero, norm weights one."""
-    model = LM(cfg, device=device)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.ndim == 2:
-                scale = 0.02 if name == "embed" else p.shape[0] ** -0.5
-                p.copy_(trunc_normal(generator, p.shape, scale, p.dtype))
-    return model
+    the embedding at scale 0.02 and every matrix (stacked expert weights
+    too) at ``d_in ** -0.5``, as the reference draws them (its random
+    stream is JAX's and is not reproduced); biases zero, norm weights
+    one.  The MoE router stays float32 in every config."""
+    return draw_weights(LM(cfg, device=device), generator)
 
 
 # -- forward passes -----------------------------------------------------------

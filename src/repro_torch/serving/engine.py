@@ -8,6 +8,13 @@ Sampling: temperature / top-k, from a ``torch.Generator`` seeded by
 ``seed``.  The port runs eagerly: the reference's ``jax.jit`` has no
 counterpart.
 
+Under an MoE model a slot's tokens depend on the other slots, as in the
+reference: a decode tick routes all ``n_slots`` tokens (idle slots
+included) through one set of expert capacity buffers, whose size counts
+them all, so a pair of one slot can be dropped because of the others'
+routing.  The same prompt can therefore decode differently in another
+batch, or through ``lm_forward`` over the whole sequence.
+
 Float32 only, as the reference: its engine keeps the KV cache in float32
 (``serving/engine.py:63``), a bfloat16 model's decode attention then
 promotes the residual to float32, and its layer scan rejects the carry

@@ -52,6 +52,7 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.configs",
                                     "repro_torch.models",
                                     "repro_torch.models.carry",
+                                    "repro_torch.models.moe",
                                     "repro_torch.launch.placement",
                                     "repro_torch.launch.serve",
                                     "repro_torch.serving"])

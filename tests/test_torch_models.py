@@ -33,6 +33,8 @@ from repro_torch.models.mlp import MLP
 
 DENSE = ["qwen2-0.5b", "llama3.2-1b", "qwen2.5-14b", "stablelm-3b",
          "internvl2-2b"]
+# deepseek's SMOKE keeps its dense-first layer: layer 0 dense, 1-2 MoE
+MOE = ["phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"]
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
 _MODELS: dict = {}
@@ -224,8 +226,68 @@ def test_init_model_layout_and_seeding():
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
-                                  "falcon-mamba-7b", "zamba2-7b",
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE)
+def test_carry_round_trip_moe(arch, dtype):
+    """The stacked (L, E, ...) expert weights, the router and deepseek's
+    ``dense_blocks`` cross and come back bitwise; the router stays float32
+    in a bfloat16 config."""
+    rcfg, params, _, model = models(arch, dtype)
+    tree = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), params)
+    back = params_to_numpy(model)
+    assert jax.tree.structure(tree) == jax.tree.structure(back)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    assert ("dense_blocks" in back) == bool(rcfg.moe.first_dense_layers)
+    for blk in model.blocks:
+        assert blk.moe.router.dtype == torch.float32
+        assert blk.moe.wi.dtype == getattr(torch, dtype)
+    assert sum(p.numel() for p in model.parameters()) == rcfg.param_count()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_init_model_draws_every_moe_parameter(arch):
+    """Every matrix drawn (none left at ``torch.empty``'s values): each
+    expert tensor, the router and the dense-first layer at the reference's
+    scale (std = scale x 0.88, the [-2, 2] truncated normal's), vectors
+    ones or zeros; the router float32 in a bfloat16 config; the same
+    weights from the same seed."""
+    rcfg = RC.get_config(arch, smoke=True)
+    tcfg = TC.get_config(arch, smoke=True).with_(dtype="bfloat16")
+    params, _ = R_reg.init_model(rcfg, jax.random.key(0))
+    model = T_reg.init_model(tcfg, torch.Generator().manual_seed(5),
+                             device="cpu")
+    tree = params_to_numpy(model)
+    ref = jax.tree.map(np.asarray, params)
+    assert jax.tree.structure(ref) == jax.tree.structure(tree)
+    m = tcfg.moe
+    for name, p in model.named_parameters():
+        a = p.detach().to(torch.float32)
+        if p.ndim == 1:
+            assert torch.equal(a, torch.ones_like(a)) or not a.any(), name
+            continue
+        if name.endswith("router"):
+            assert p.dtype == torch.float32, name
+        else:
+            assert p.dtype == torch.bfloat16, name
+        if name == "embed":
+            scale = 0.02
+        elif name.endswith("moe.wo"):
+            scale = m.d_ff_expert ** -0.5
+        else:
+            scale = p.shape[-2] ** -0.5
+        assert abs(float(a.std()) / (0.88 * scale) - 1) < 0.1, name
+        assert float(a.abs().max()) <= 2 * scale * 1.01, name
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(ref),
+                            jax.tree.leaves(tree)):
+        assert a.shape == b.shape, path
+    again = T_reg.init_model(tcfg, torch.Generator().manual_seed(5),
+                             device="cpu")
+    for x, y in zip(model.parameters(), again.parameters()):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
                                   "whisper-medium"])
 def test_unported_families_raise(arch):
     tcfg = TC.get_config(arch, smoke=True)
@@ -233,12 +295,6 @@ def test_unported_families_raise(arch):
         T_reg.init_model(tcfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T_lm.init_lm_cache(tcfg, 1, 8, torch.float32, device="cpu")
-    if arch == "deepseek-moe-16b":
-        params, _ = R_reg.init_model(RC.get_config(arch, smoke=True),
-                                     jax.random.key(0))
-        with pytest.raises(NotImplementedError, match="dense-first"):
-            params_from_reference(tcfg, jax.tree.map(np.asarray, params),
-                                  device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b",
@@ -313,6 +369,48 @@ def test_vlm_patch_embeds(mode):
     assert_close(ref, out)
 
 
+@pytest.mark.parametrize("mode", ["all", "last", "none"])
+@pytest.mark.parametrize("arch", MOE)
+def test_lm_forward_moe_logits_and_aux(arch, mode):
+    """Logits (or hidden states) and the MoE layers' summed aux loss."""
+    rcfg, params, tcfg, model = models(arch)
+    tok = tokens(rcfg, seed=14)
+    ref, raux = R_lm.lm_forward(rcfg, params, tok, logits_mode=mode,
+                                remat=False)
+    with torch.no_grad():
+        out, aux = T_lm.lm_forward(tcfg, model, torch.from_numpy(tok),
+                                   logits_mode=mode)
+    assert_close(ref, out, what=mode)
+    assert float(raux) > 0
+    assert_close(raux, aux, what="aux")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_lm_forward_moe_bfloat16(arch):
+    """bfloat16 rounds each layer's input to about 2^-8, so a token whose
+    k-th and (k+1)-th router probabilities lie that close can go to either
+    expert in either package, and its output then differs by its own
+    size.  Zero routers make every probability 1/E in any precision: the
+    tie rule routes every token to experts 0..k-1, whose buffers overflow,
+    and the rest of the bfloat16 model (dense-first layer, attention,
+    experts, drops, shared experts) is compared without that ambiguity.
+    With the drawn routers, bfloat16 is held at the layer level
+    (``tests/test_torch_moe.py``, the same inputs on both sides)."""
+    rcfg, params, tcfg, _ = models(arch, "bfloat16")
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.zeros_like(a) if path[-1].key == "router" else a,
+        params)
+    model = params_from_reference(tcfg, jax.tree.map(np.asarray, params),
+                                  device="cpu")
+    tok = tokens(rcfg, seed=15)
+    ref, raux = R_lm.lm_forward(rcfg, params, tok, remat=False)
+    with torch.no_grad():
+        out, aux = T_lm.lm_forward(tcfg, model, torch.from_numpy(tok))
+    assert out.dtype == torch.bfloat16
+    assert_close(ref, out, "bfloat16")
+    assert_close(raux, aux, "bfloat16", "aux")
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_lm_forward_bfloat16(arch):
     rcfg, params, tcfg, model = models(arch, "bfloat16")
@@ -327,7 +425,7 @@ def test_lm_forward_bfloat16(arch):
 # -- prefill and decode ---------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_lm_prefill_logits_and_cache(arch):
     rcfg, params, tcfg, model = models(arch)
     tok = tokens(rcfg, S=10, seed=9)
@@ -377,6 +475,18 @@ def test_lm_decode_step_scalar_pos(arch):
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b"])
 def test_lm_decode_step_per_slot_pos(arch):
     _decode_both(arch, lambda i: np.array([5 + i, 9 + 2 * i, 2], np.int32))
+
+
+@pytest.mark.parametrize("pos", ["scalar", "per_slot"])
+@pytest.mark.parametrize("arch", MOE)
+def test_lm_decode_step_moe(arch, pos):
+    """Four decode steps after a prefill; deepseek's cache is split as the
+    reference splits it (layer 0 the dense block's, 1-2 the MoE blocks')."""
+    if pos == "scalar":
+        _decode_both(arch, lambda i: np.int32(5 + i), steps=4)
+    else:
+        _decode_both(arch, lambda i: np.array([5 + i, 9 + 2 * i, 2],
+                                              np.int32), steps=4)
 
 
 def test_lm_decode_step_at_max_len():

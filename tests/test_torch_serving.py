@@ -8,6 +8,7 @@ float32 tolerance of ``test_torch_models.py``.  A draw from
 sampled tokens are checked for support (inside the top-k set) and for
 seeded reproducibility within the port."""
 import contextlib
+import dataclasses
 import io
 import sys
 
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as RC
 from repro.launch import serve as R_serve
 from repro.models.config import ModelConfig as R_Config
 from repro.models.registry import init_model as R_init
@@ -25,7 +27,9 @@ from repro.serving import Request as R_Request
 from repro.serving import cache_insert as R_cache_insert
 from repro.serving import sample_logits as R_sample_logits
 
+import repro_torch.configs as TC
 from repro_torch.launch import serve as T_serve
+from repro_torch.models import moe as T_moe
 from repro_torch.models import transformer as T_lm
 from repro_torch.models.carry import params_from_reference
 from repro_torch.models.config import ModelConfig as T_Config
@@ -83,6 +87,72 @@ def test_engine_greedy_tokens_equal_the_reference_engine():
     # and the port's engine equals its own straight-line greedy
     for req in done:
         assert req.out == _straightline_greedy(model, req.prompt, 6), req.rid
+
+
+def _moe_pair(arch, **moe):
+    """The reference's SMOKE MoE params (seed 0) and the port's model
+    holding them, with MoE fields of both configs set."""
+    cfgs = []
+    for pkg in (RC, TC):
+        cfg = pkg.get_config(arch, smoke=True)
+        cfgs.append(cfg.with_(moe=dataclasses.replace(cfg.moe, **moe)))
+    rcfg, tcfg = cfgs
+    params, _ = R_init(rcfg, jax.random.key(0))
+    return rcfg, params, tcfg, params_from_reference(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _moe_engines(arch, slots, **moe):
+    """Both engines, greedy, over the same 4 requests (more than the
+    slots: slots are refilled), and the port's (T, dropped pairs) per MoE
+    call."""
+    rcfg, params, tcfg, model = _moe_pair(arch, **moe)
+    ref = R_Engine(rcfg, params, n_slots=slots, max_len=48, temperature=0.0)
+    eng = Engine(tcfg, model, n_slots=slots, max_len=48, temperature=0.0,
+                 device="cpu")
+    rng = np.random.default_rng(3)
+    for i, L in enumerate((6, 11, 4, 9)):
+        p = rng.integers(0, tcfg.vocab, L).astype(np.int32)
+        ref.submit(R_Request(rid=i, prompt=p, max_new=7))
+        eng.submit(Request(rid=i, prompt=p, max_new=7))
+    calls = []
+
+    def hook(mod, args):
+        x = args[0]
+        r = T_moe.route(tcfg, mod.router, x.reshape(-1, x.shape[-1]))
+        calls.append((x.shape[0] * x.shape[1], int((~r.keep).sum())))
+
+    for blk in model.blocks:
+        blk.moe.register_forward_pre_hook(hook)
+    rdone, rticks = ref.run()
+    done, ticks = eng.run()
+    assert ticks == rticks
+    assert [(r.rid, r.out) for r in done] == [(r.rid, r.out) for r in rdone]
+    np.testing.assert_array_equal(eng.pos, ref.pos)
+    for k in ("k", "v"):
+        a = np.asarray(ref.cache["attn"][k])
+        b = eng.cache["attn"][k].numpy()
+        assert np.abs(a - b).max() <= 2e-5 * np.abs(a).max(), k
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"])
+def test_moe_engine_greedy_tokens_equal_the_reference_engine(arch):
+    """2 slots, 4 requests: the same tokens, finishing order, ticks and
+    caches (deepseek's split into its dense-first and MoE layers)."""
+    calls = _moe_engines(arch, 2)
+    assert any(T == 2 for T, _ in calls)  # decode ticks routed both slots
+
+
+def test_moe_engine_with_decode_drops_equals_the_reference_engine():
+    """Capacity 0.5 drops pairs in decode ticks too.  A tick routes one
+    token per slot, each to k distinct experts, and C >= k: with 2 slots
+    no expert can overflow, so this run uses 3 (phi3.5: E 4, top-2, C 2).
+    The same tokens as the reference's engine, whose drops couple the
+    slots the same way."""
+    calls = _moe_engines("phi3.5-moe-42b-a6.6b", 3, capacity_factor=0.5)
+    assert sum(d for T, d in calls if T == 3) > 0, calls
+    assert sum(d for T, d in calls if T != 3) > 0, calls  # prefills
 
 
 def test_engine_more_requests_than_slots_samples_in_support():
@@ -189,7 +259,8 @@ def _run_main(main, argv):
     return out.getvalue().splitlines()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b",
+                                  "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"])
 def test_serve_launcher_matches_the_reference(arch):
     """Same placement line, same request, token and tick counts (the
     sampled tokens themselves come from different generators)."""

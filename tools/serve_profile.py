@@ -1,10 +1,11 @@
 """Where a decode tick of the serving engine spends its time, on one card.
 
-    python3 tools/serve_profile.py [--ticks 8]
+    python3 tools/serve_profile.py [--ticks 8] [--arch qwen2-0.5b]
 
-Builds ``chip_smoke.py``'s phase-10 model (qwen2-0.5b at full width,
-float32, weights from a generator seeded 2009), fills all 8 slots of an
-``Engine`` (max_len 512) with the first 8 of phase 10's prompts, and traces
+Builds ``chip_smoke.py``'s phase-10 model (``--arch``: qwen2-0.5b, or
+phase 11's deepseek-moe-16b, at full width and depth, float32, weights from
+a generator seeded 2009), fills all 8 slots of an ``Engine`` (max_len 512)
+with the first 8 of phase 10's prompts, and traces
 ``--ticks`` engine ticks (all slots decoding, none refilled) with
 ``torch.profiler`` (CPU and CUDA activities), then one 256-token prefill.
 Prints, with the card's name and power limit: the host-clock time per
@@ -66,12 +67,13 @@ def breakdown(prof, calls, tag, what, wall_ms):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--arch", default=cs.SERVE_ARCH)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device", file=sys.stderr)
         return 2
     tag = cs.card()
-    cfg = get_config(cs.SERVE_ARCH).with_(dtype="float32")
+    cfg = get_config(args.arch).with_(dtype="float32")
     model = init_model(cfg, torch.Generator(device="cuda").manual_seed(cs.SEED),
                        device="cuda")
     rng = np.random.default_rng(cs.SEED)
@@ -94,8 +96,8 @@ def main(argv=None) -> int:
             eng.step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / args.ticks
-    breakdown(prof, args.ticks, tag, f"engine tick ({cs.SERVE_SLOTS} slots "
-              f"decoding)", wall)
+    breakdown(prof, args.ticks, tag, f"{cfg.name} engine tick "
+              f"({cs.SERVE_SLOTS} slots decoding)", wall)
 
     long = next(p for p in prompts if len(p) > 192)
     cache = lm.init_lm_cache(cfg, 1, cs.SERVE_MAX_LEN, torch.float32,
@@ -109,7 +111,8 @@ def main(argv=None) -> int:
         lm.lm_prefill(cfg, model, tok, cache)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    breakdown(prof, 1, tag, f"prefill of {len(long)} tokens", wall)
+    breakdown(prof, 1, tag, f"{cfg.name} prefill of {len(long)} tokens",
+              wall)
     print(tag)
     return 0
 
