@@ -81,7 +81,27 @@ just before and read just after:
   (k+1)-th router probabilities lie within 1e-5 of each other; (c) one
   full-width phi3.5-moe layer (16 experts 4096 -> 6400, top-2) on the card
   against the CPU at T = 8 and 256 tokens, output within 1e-3 x max |out|
-  and routing equal, with its drops at T = 256 printed.
+  and routing equal, with its drops at T = 256 printed;
+- the SSM, hybrid and enc-dec families (phase 12), each model freed before
+  the next allocates: ``launch/serve.py --arch`` falcon-mamba-7b,
+  zamba2-7b and whisper-medium on the card (``plan_serving`` through the
+  superstep kernel == plain, then the SMOKE engine or enc-dec decode);
+  falcon-mamba-7b (64 Mamba-1 layers, d_model 4096, 7,272,665,088
+  parameters) and zamba2-7b (81 Mamba-2 layers, d_model 3584, and one
+  shared attention block called at 14 sites; 6,751,130,832 parameters) at
+  full width and depth in float32 under phase 10's load, each decode tick
+  held against the bytes of its weights, states and attended k/v rows,
+  with a 4,096-token prefill timed and the launches per tick traced; (a)
+  the engine's greedy tokens equal ``lm_prefill`` + ``lm_decode_step`` at
+  batch 1 up to a near tie; (b) a cut (3 layers; zamba2 8, one group and a
+  tail of 2) against the host CPU at 256 and 4,096 tokens (the chunked
+  scan; the chunked SSD, bfloat16 inside a chunk, held within 5e-2 x max,
+  the float32 paths within 1e-3): prefill logits, every cache leaf and 16
+  greedy steps.  whisper-medium (24 + 24 layers, 758,707,200 parameters):
+  8 streams of 1,500 stub frames, the encoder and the cross K/V, then 128
+  greedy decode steps (self cache 448) against each step's bound; stream 0
+  against the host CPU: ``enc_out`` and the first logits within 1e-3 x
+  max, greedy tokens up to a near tie.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -1259,15 +1279,22 @@ def straightline_check(lm, cfg, model, req, device, tag):
     return len(req.out)
 
 
-def greedy_decode(lm, cfg, model, prompts, steps, device, max_len=None):
+def greedy_decode(lm, cfg, model, prompts, steps, device, max_len=None,
+                  states=None):
     """lm_prefill then greedy lm_decode_step calls at batch len(prompts)
     for ``steps`` tokens, over a cache of ``max_len`` (default: just long
-    enough); returns the prefill logits and per-step (tokens, logits)."""
+    enough); returns the prefill logits and per-step (tokens, logits).
+    ``states``, if given, receives a host copy of every cache leaf right
+    after the prefill, by "group.leaf"."""
     B, S = prompts.shape
     cache = lm.init_lm_cache(cfg, B, max_len or S + steps, torch.float32,
                              device=device)
     tok = torch.from_numpy(prompts).to(device)
     first, cache = lm.lm_prefill(cfg, model, tok, cache)
+    if states is not None:
+        states.update({f"{g}.{k}": t.float().cpu().clone()
+                       for g, leaves in cache.items()
+                       for k, t in leaves.items()})
     out, logits = [], first[:, -1]
     for i in range(steps):
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1342,13 +1369,19 @@ def decode_bound_ms(cfg, n_params):
     return 1e3 * 4 * (n_params - table) / HBM_BYTES_S
 
 
+WEIGHT_BYTES = "the bytes of the weights a step reads"
+
+
 def serve_load(tag, cfg, model, prompts, device, *, max_new, slots, max_len,
-               bound_ms, bound_note="", watch=None):
+               bound, what, watch=None):
     """The engine serves ``prompts`` greedily, timed (tokens/s, decode step
-    percentiles, prefill by 64-token bucket, peak memory), then the first
-    ``SAMPLED`` at launch/serve.py's sampling setting, twice from one seed,
-    identical; ``watch(model)``, if given, is entered around the first
-    sampled run.  Returns the stats and the greedy requests."""
+    percentiles against their bound, prefill by 64-token bucket, peak
+    memory), then the first ``SAMPLED`` at launch/serve.py's sampling
+    setting, twice from one seed, identical; ``watch(model)``, if given, is
+    entered around the first sampled run.  ``bound(pos)`` is a decode
+    tick's least time in ms from the slots' positions (``what`` names the
+    bytes it counts); the stats hold its median over the ticks.  Returns
+    the stats and the greedy requests."""
     from repro_torch.serving import Engine, Request
 
     requests = len(prompts)
@@ -1366,8 +1399,13 @@ def serve_load(tag, cfg, model, prompts, device, *, max_new, slots, max_len,
     del warm
 
     eng = engine(0.0, 0)
-    ticks_ms, prefill_ms = [], []
-    eng._decode = timed(eng._decode, ticks_ms, device)
+    ticks_ms, prefill_ms, bounds = [], [], []
+    decode = timed(eng._decode, ticks_ms, device)
+
+    def bounded(*args):
+        bounds.append(bound(eng.pos))
+        return decode(*args)
+    eng._decode = bounded
     eng._prefill = timed(eng._prefill, prefill_ms, device,
                          key=lambda m, t, c: int(t.shape[1]))
     for i, p in enumerate(prompts):
@@ -1384,6 +1422,10 @@ def serve_load(tag, cfg, model, prompts, device, *, max_new, slots, max_len,
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else None)
     tick = np.asarray(ticks_ms)
+    bound_ms = float(np.median(bounds))
+    if min(bounds) < max(bounds):
+        what = (f"median over the ticks, {min(bounds):.3f}-{max(bounds):.3f}"
+                f" ms: {what}")
     by_len = sorted(prefill_ms)
     buckets = {}
     for n, ms in by_len:
@@ -1409,8 +1451,8 @@ def serve_load(tag, cfg, model, prompts, device, *, max_new, slots, max_len,
           f"{generated} tokens, {stats['tokens_per_s']:.1f} tokens/s, "
           f"{ticks} ticks; decode step p50 {stats['decode_step_ms_p50']:.3f} "
           f"ms p95 {stats['decode_step_ms_p95']:.3f} ms against a bound of "
-          f"{bound_ms:.3f} ms (the bytes of the weights a step reads over "
-          f"{HBM_BYTES_S / 1e12} TB/s){bound_note}; prefill total "
+          f"{bound_ms:.3f} ms ({what} over {HBM_BYTES_S / 1e12} TB/s); "
+          f"prefill total "
           f"{stats['prefill_ms_total']:.1f} ms, median ms by prompt length "
           f"[count, ms] {stats['prefill_ms_by_len']}; peak device memory "
           f"{peak}")
@@ -1460,7 +1502,7 @@ def serving_phase(tag, *, device="cuda", arch=SERVE_ARCH, smoke=False,
     bound_ms = decode_bound_ms(cfg, n_params)
     stats, done = serve_load(tag, cfg, model, prompts, device,
                              max_new=max_new, slots=slots, max_len=max_len,
-                             bound_ms=bound_ms)
+                             bound=lambda pos: bound_ms, what=WEIGHT_BYTES)
 
     # (a) the engine against a straight-line greedy
     steps = [straightline_check(lm, cfg, model, r, device, tag)
@@ -1491,7 +1533,8 @@ ROUTE_TIE = 1e-5  # k-th vs (k+1)-th router probability, relative
 def launcher_phase(tk, tag, arch):
     """``launch/serve.py --arch arch`` on the card: ``plan_serving``
     through the superstep kernel (its slices equal to the plain version's),
-    then the arch's SMOKE engine.  Returns the kernel's launches."""
+    then the arch's SMOKE engine (or, for whisper, its enc-dec decode).
+    Returns the kernel's launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import placement as pl
     from repro_torch.launch import serve
@@ -1512,7 +1555,10 @@ def launcher_phase(tk, tag, arch):
                             device="cuda", kernel_impl="plain")
     assert lines[0] == f"[placement] decode dataflow -> slices " \
         f"{plain.stage_slices}", (lines, plain)
-    assert lines[-1].startswith(f"{arch}: served 4 requests"), lines
+    last = (f"{arch} (enc-dec): decoded 8 steps x 4 streams"
+            if get_config(arch).family == "encdec"
+            else f"{arch}: served 4 requests")
+    assert lines[-1].startswith(last), lines
     print(f"[{tag}] launch/serve.py --arch {arch}: {lines}; {launches} "
           f"superstep launches (slices == kernel_impl='plain'); wall "
           f"{wall:.2f} s")
@@ -1588,22 +1634,15 @@ def same_routing(dev, cpu, k, what):
     return compared, ties, flipped
 
 
-def bookkeeping_check(lm, cfg, model, prompts, device, tag):
-    """(a) A one-slot engine's greedy tokens against ``lm_prefill`` +
-    ``lm_decode_step`` at batch 1 over a cache of the same length: both
-    route the same T tokens per call, so they drop the same pairs.  Equal
-    up to the first near tie (top-2 gap at most 1e-3 x max |logit|)."""
-    from repro_torch.serving import Engine, Request
-
-    eng = Engine(cfg, model, n_slots=1, max_len=SERVE_MAX_LEN,
-                 temperature=0.0, device=device)
-    for i, p in enumerate(prompts[:BOOKKEEPING_CHECKS]):
-        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
-    done, _ = eng.run()
+def batch1_check(lm, cfg, model, done, device, tag, max_len):
+    """Each served request's greedy tokens against ``lm_prefill`` +
+    ``lm_decode_step`` at batch 1 over a cache of ``max_len``, equal up to
+    the first near tie (top-2 gap at most 1e-3 x max |logit|).  Returns
+    the steps compared per request."""
     steps = []
     for req in sorted(done, key=lambda r: r.rid):
-        _, want = greedy_decode(lm, cfg, model, req.prompt[None], SERVE_NEW,
-                                device, max_len=SERVE_MAX_LEN)
+        _, want = greedy_decode(lm, cfg, model, req.prompt[None],
+                                len(req.out), device, max_len=max_len)
         n = len(req.out)
         for i, (got, (tok, logits)) in enumerate(zip(req.out, want)):
             gap, scale = top2_gap(logits[0]), float(logits[0].abs().max())
@@ -1614,6 +1653,21 @@ def bookkeeping_check(lm, cfg, model, prompts, device, tag):
                 break
             assert got == int(tok[0]), (req.rid, i, got, int(tok[0]), gap)
         steps.append(n)
+    return steps
+
+
+def bookkeeping_check(lm, cfg, model, prompts, device, tag):
+    """(a) A one-slot engine's greedy tokens against ``lm_prefill`` +
+    ``lm_decode_step`` at batch 1 over a cache of the same length: both
+    route the same T tokens per call, so they drop the same pairs."""
+    from repro_torch.serving import Engine, Request
+
+    eng = Engine(cfg, model, n_slots=1, max_len=SERVE_MAX_LEN,
+                 temperature=0.0, device=device)
+    for i, p in enumerate(prompts[:BOOKKEEPING_CHECKS]):
+        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
+    done, _ = eng.run()
+    steps = batch1_check(lm, cfg, model, done, device, tag, SERVE_MAX_LEN)
     print(f"[{tag}] (a) one-slot engine greedy == lm_prefill + "
           f"lm_decode_step at batch 1 over {steps} of {SERVE_NEW} steps of "
           f"requests 0-{BOOKKEEPING_CHECKS - 1}")
@@ -1640,13 +1694,13 @@ def moe_serving_phase(tag, *, device="cuda", arch=MOE_ARCH, smoke=False,
     drops = {}
     stats, _ = serve_load(
         tag, cfg, model, prompts, device, max_new=max_new, slots=slots,
-        max_len=max_len, bound_ms=bound_ms,
-        bound_note=(f"; {active_ms:.3f} ms for the active parameters alone, "
-                    f"what a dispatch reading only the routed experts would "
-                    f"need (the E x C dispatch runs every expert every "
-                    f"tick)"),
+        max_len=max_len, bound=lambda pos: bound_ms, what=WEIGHT_BYTES,
         watch=count_drops(moe_mod, drops, slots))
     stats["decode_active_bound_ms"] = active_ms
+    print(f"[{tag}] decode bound for the active parameters alone "
+          f"{active_ms:.3f} ms, what a dispatch reading only the routed "
+          f"experts would need (the E x C dispatch runs every expert every "
+          f"tick)")
     for key in ("tick", "prefill"):
         got = [int(n) for n in drops.get(key, [])]
         stats[f"dropped_per_{key}"] = [sum(got),
@@ -1741,6 +1795,343 @@ def moe_layer_phase(tag, *, device="cuda", arch=MOE_LAYER_ARCH, smoke=False,
         out[T] = {"max_abs_err": err, "max_out": scale, "dropped": dropped,
                   "pairs": rc.keep.numel(), "capacity": rc.capacity}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the SSM, hybrid and enc-dec families at full width and depth
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")  # served at full width and depth
+ENCDEC_ARCH = "whisper-medium"
+# Elements of the reference's parameter tree (jax.eval_shape of its
+# init_model at the full config).  ModelConfig.param_count() only estimates
+# these families: 7,272,140,800, 6,754,562,640 and 758,336,512.
+TREE_PARAMS = {"falcon-mamba-7b": 7_272_665_088, "zamba2-7b": 6_751_130_832,
+               "whisper-medium": 758_707_200}
+# check (b): falcon-mamba cut to 3 layers; zamba2 to 8, one group of 6 and a
+# tail of 2, so two call sites of the shared block
+SSM_HOST_DEPTH = {"falcon-mamba-7b": 3, "zamba2-7b": 8}
+# 4,096 tokens: Mamba-1's scan in 8 chunks of 512, Mamba-2's chunked SSD in
+# 16 chunks of 256; 256 tokens: one scan, and Mamba-2's naive recurrence
+SSM_HOST_LENS = (256, 4096)
+SSM_HOST_DECODE = 16
+LONG_PREFILL = 4096  # the full model's long prefill, timed
+# The chunked SSD computes inside a chunk in bfloat16 in either config.  A
+# float32 sum that lies next to a bfloat16 rounding boundary rounds to
+# either side on the card and on the CPU (their sums run in other orders),
+# moving that value by one bfloat16 step, 2^-8 relative, and 16 chunks and
+# 8 layers carry such steps on.  On the H100 the 8-layer zamba2 cut at
+# 4,096 tokens read 8.9e-4 x max on the logits and at most 5.5e-3 x max on
+# a cache leaf (attn.k; ssm states 3.8e-3, conv 1.1e-3); the limits keep
+# about 2x over those readings, the float32 paths are held to 1e-3.
+SSD_LOGITS_TOL = 5e-3
+SSD_LEAF_TOL = 1e-2
+WHISPER_STREAMS, WHISPER_FRAMES, WHISPER_STEPS = 8, 1500, 128
+WHISPER_SELF_LEN = 448  # max_target_len: the decoder's learned positions
+
+
+def free_device():
+    """The last phase's model goes before the next allocates."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() < 2**30, \
+            torch.cuda.memory_allocated()
+
+
+def launch_count(prof) -> int:
+    """Kernel launches recorded by a ``torch.profiler`` trace."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                            "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+def launches_per_call(fn, device, calls=2):
+    """Kernel launches per call of ``fn``, traced by ``torch.profiler``
+    over ``calls`` calls; None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync(device)
+    return launch_count(prof) / calls
+
+
+def ssm_tick_bound(lm, cfg, n_params, max_len):
+    """A decode tick's bound in ms from the slots' positions: the bytes of
+    every weight but the untied embedding table (a tick gathers a few of
+    its rows), each slot's float32 SSM states read and written, and for
+    the hybrid the k/v rows 0..pos of every slot that each shared-block
+    call site attends to, over the HBM rate."""
+    from repro_torch.models import ssm as ssm_mod
+
+    table = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    weights = 4 * (n_params - table)
+    slot = ssm_mod.state_init(cfg, 1, torch.float32, device="meta")
+    states = 2 * 4 * cfg.n_layers * sum(t.numel() for t in slot.values())
+    sites = lm.hybrid_attn_layers(cfg) if cfg.family == "hybrid" else 0
+    row = 2 * 4 * cfg.n_kv_heads * cfg.hd()
+
+    def bound(pos):
+        pos = np.minimum(np.asarray(pos, np.int64), max_len - 1)
+        nbytes = weights + states * len(pos) + sites * row * int(
+            (pos + 1).sum())
+        return 1e3 * nbytes / HBM_BYTES_S
+    return bound
+
+
+def ssm_serving_phase(tag, arch, *, device="cuda", smoke=False,
+                      requests=SERVE_REQUESTS, max_new=SERVE_NEW,
+                      slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      prompt_lens=PROMPT_LENS, long_prefill=LONG_PREFILL):
+    """Phase 10's load on an SSM or hybrid model at full width and depth
+    (float32, drawn from ``SEED``), then (a): the engine's greedy tokens of
+    the first ``GREEDY_CHECKS`` requests against ``lm_prefill`` +
+    ``lm_decode_step`` at batch 1 (no slot couples to another), a
+    ``long_prefill``-token prefill timed, and the launches per tick."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as lm
+    from repro_torch.serving import Engine, Request
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = get_config(arch, smoke=smoke).with_(dtype="float32")
+    model, n_params = draw_model(tag, cfg, device)
+    if not smoke:
+        assert n_params == TREE_PARAMS[arch], (n_params, TREE_PARAMS[arch])
+    rng = np.random.default_rng(SEED)
+    prompts = serve_prompts(cfg, rng, requests, prompt_lens)
+    hybrid = cfg.family == "hybrid"
+    stats, done = serve_load(
+        tag, cfg, model, prompts, device, max_new=max_new, slots=slots,
+        max_len=max_len, bound=ssm_tick_bound(lm, cfg, n_params, max_len),
+        what=("the bytes of every weight but the untied table, the float32 "
+              "states read and written" +
+              (" and the k/v rows the shared block attends to"
+               if hybrid else "")))
+    steps = batch1_check(lm, cfg, model,
+                         sorted(done, key=lambda r: r.rid)[:GREEDY_CHECKS],
+                         device, tag, max_len)
+    print(f"[{tag}] (a) {arch}: engine greedy ({slots} slots) == lm_prefill "
+          f"+ lm_decode_step at batch 1 over {steps} of {max_new} steps of "
+          f"requests 0-{GREEDY_CHECKS - 1}")
+    stats["batch1_steps"] = steps
+
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, long_prefill))
+                           .astype(np.int32)).to(device)
+    cache = lm.init_lm_cache(cfg, 1, long_prefill, torch.float32,
+                             device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    logits, cache = lm.lm_prefill(cfg, model, tok, cache)
+    sync(device)
+    stats["long_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    assert bool(torch.isfinite(logits).all())
+    del cache, logits
+
+    eng = Engine(cfg, model, n_slots=slots, max_len=max_len, device=device)
+    for i, p in enumerate(prompts[:slots]):
+        eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+    eng.step()  # fills every slot
+    eng.step()
+    stats["launches_per_tick"] = launches_per_call(eng.step, device)
+    del eng
+    stats["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                  if cuda else None)
+    stats["wall_s_phase"] = time.perf_counter() - t_phase
+    print(f"[{tag}] {arch}: {long_prefill}-token prefill "
+          f"{stats['long_prefill_ms']:.1f} ms; kernel launches per tick "
+          f"{stats['launches_per_tick']}; peak device memory "
+          f"{stats['peak_device_bytes']}; wall {stats['wall_s_phase']:.2f} s")
+    return stats
+
+
+def ssm_host_phase(tag, arch, *, device="cuda", smoke=False, depth=None,
+                   lens=SSM_HOST_LENS, steps=SSM_HOST_DECODE):
+    """(b) The model cut to ``depth`` layers at full width on the card
+    against its copy on the host CPU, one prompt of each length: prefill
+    logits and every cache leaf (conv and ssm states; the hybrid's k/v)
+    within the tolerance of the path (1e-3 x max |value|; where the
+    chunked SSD runs, ``SSD_LOGITS_TOL`` and ``SSD_LEAF_TOL``), then ``steps`` greedy tokens, equal
+    wherever the CPU's top-2 gap exceeds 10x the logits' error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as lm
+
+    cfg = get_config(arch, smoke=smoke).with_(
+        dtype="float32", n_layers=depth or SSM_HOST_DEPTH[arch])
+    model, n_params = draw_model(tag, cfg, device)
+    host = lm.LM(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for S in lens:
+        chunked = (cfg.ssm.version == 2 and S % ssm_mod.SSD_CHUNK == 0
+                   and S > ssm_mod.SSD_CHUNK)
+        tol, leaf_tol = (SSD_LOGITS_TOL, SSD_LEAF_TOL) if chunked else (
+            1e-3, 1e-3)
+        prompt = rng.integers(0, cfg.vocab, (1, S)).astype(np.int32)
+        res = {}
+        for dev, m in ((device, model), ("cpu", host)):
+            states = {}
+            first, toks = greedy_decode(lm, cfg, m, prompt, steps, dev,
+                                        states=states)
+            res[dev] = (first[0], states, toks)
+        (df, ds, dt), (cf, cs, ct) = res[device], res["cpu"]
+        err, scale = float((df - cf).abs().max()), float(cf.abs().max())
+        assert err <= tol * scale, (S, err, scale, tol)
+        state_err = {}
+        for k in cs:
+            e, sc = float((ds[k] - cs[k]).abs().max()), float(cs[k].abs().max())
+            assert e <= leaf_tol * sc, (S, k, e, sc, leaf_tol)
+            state_err[k] = [e, sc]
+        n = steps
+        for i, ((dtok, _), (ctok, cl)) in enumerate(zip(dt, ct)):
+            if top2_gap(cl[0]) <= 10 * err:
+                print(f"[{tag}] (b) {arch} S={S}: near tie at decode step "
+                      f"{i}; compared {i} steps")
+                n = i
+                break
+            assert int(dtok[0]) == int(ctok[0]), (S, i, int(dtok[0]),
+                                                  int(ctok[0]))
+        print(f"[{tag}] (b) {cfg.name} at depth {cfg.n_layers} ({n_params} "
+              f"parameters), {S}-token prompt, {device} vs host CPU"
+              f"{' (chunked SSD, bfloat16 inside a chunk)' if chunked else ''}"
+              f": prefill logits max abs err {err:.3g}, max |logit| "
+              f"{scale:.3g} (limit {tol:g} x max); cache leaves [err, max] "
+              f"{state_err} (limit {leaf_tol:g} x max); greedy tokens "
+              f"equal over {n} of {steps} steps")
+        out[S] = {"max_abs_err": err, "max_logit": scale, "tol": tol,
+                  "leaf_tol": leaf_tol,
+                  "states": state_err, "greedy_steps": n}
+    return out
+
+
+def whisper_phase(tag, *, device="cuda", smoke=False,
+                  streams=WHISPER_STREAMS, frames=WHISPER_FRAMES,
+                  steps=WHISPER_STEPS, self_len=WHISPER_SELF_LEN):
+    """whisper-medium at full width and depth in float32: ``streams``
+    streams of ``frames`` stub frame embeddings drawn N(0, 0.02) from
+    ``SEED``, the encoder and the cross K/V (cross cache of ``frames``),
+    then ``steps`` greedy decode steps from token 0 (self cache of
+    ``self_len``), timed step by step against each step's bound; stream 0
+    held against the host CPU: ``enc_out`` and the first decode logits
+    within 1e-3 x max, greedy tokens equal up to a near tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ed
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH, smoke=smoke).with_(dtype="float32")
+    model, n_params = draw_model(tag, cfg, device)
+    if not smoke:
+        assert n_params == TREE_PARAMS[ENCDEC_ARCH], n_params
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(
+        0, 0.02, (streams, frames, cfg.d_model)).astype(np.float32))
+
+    def run(m, dev, xs, n_steps):
+        """Prefill ms, enc_out, stream 0's (token, logits) per step on the
+        host, the ms of each step, and the cache."""
+        cache = ed.init_encdec_cache(cfg, xs.shape[0], self_len, xs.shape[1],
+                                     torch.float32, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        cache, enc = ed.encdec_prefill(cfg, m, xs.to(dev), cache)
+        sync(dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        tok = torch.zeros((xs.shape[0], 1), dtype=torch.int32, device=dev)
+        out, ms = [], []
+        for pos in range(n_steps):
+            t0 = time.perf_counter()
+            logits, cache = ed.encdec_decode_step(cfg, m, tok, cache, pos)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out.append((int(tok[0, 0]), logits[0, -1].float().cpu()))
+        return prefill_ms, enc, out, ms, cache
+
+    run(model, device, x[:2, :16], 2)  # first-call library set-up
+    prefill_ms, enc, out, ms, cache = run(model, device, x, steps)
+    assert bool(torch.isfinite(enc).all())
+    assert all(bool(torch.isfinite(lg).all()) for _, lg in out)
+    # the bytes a step reads: the decoder's weights but the cross K/V
+    # projections (their outputs are cached), the tied head, the cross
+    # cache, and the self cache's rows 0..pos
+    dec = sum(p.numel() for n, p in model.named_parameters()
+              if n.startswith(("dec_blocks", "dec_norm"))
+              and not n.endswith(("cross_attn.wk", "cross_attn.wv")))
+    row = 2 * 4 * cfg.n_dec_layers * streams * cfg.n_kv_heads * cfg.hd()
+    bounds = [1e3 * (4 * (dec + cfg.vocab * cfg.d_model + cfg.d_model)
+                     + row * (frames + pos + 1)) / HBM_BYTES_S
+              for pos in range(steps)]
+    tick = np.asarray(ms)
+    pos = steps
+
+    def one_step():
+        nonlocal pos
+        ed.encdec_decode_step(cfg, model, torch.zeros(
+            (streams, 1), dtype=torch.int32, device=device), cache, pos)
+        pos += 1
+    launches = launches_per_call(one_step, device)
+    del cache
+    stats = {
+        "arch": cfg.name, "streams": streams, "frames": frames,
+        "steps": steps, "params": n_params, "prefill_ms": prefill_ms,
+        "tokens_per_s": float(streams * steps / (tick.sum() / 1e3)),
+        "decode_step_ms_p50": float(np.percentile(tick, 50)),
+        "decode_step_ms_p95": float(np.percentile(tick, 95)),
+        "decode_bound_ms": float(np.median(bounds)),
+        "launches_per_step": launches,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None),
+    }
+    print(f"[{tag}] {cfg.name} float32: {streams} streams x {frames} frames,"
+          f" encoder + cross K/V {prefill_ms:.1f} ms; {steps} greedy decode "
+          f"steps: {stats['tokens_per_s']:.1f} tokens/s, step p50 "
+          f"{stats['decode_step_ms_p50']:.3f} ms p95 "
+          f"{stats['decode_step_ms_p95']:.3f} ms against a bound of "
+          f"{stats['decode_bound_ms']:.3f} ms (median over the steps; "
+          f"{min(bounds):.3f}-{max(bounds):.3f}: the decoder's weights, the "
+          f"tied head, the cross cache and the self cache's rows over "
+          f"{HBM_BYTES_S / 1e12} TB/s); kernel launches per step {launches};"
+          f" peak device memory {stats['peak_device_bytes']}")
+
+    host = ed.EncDec(cfg, device="cpu")
+    host.load_state_dict(model.state_dict())
+    _, enc_c, out_c, _, _ = run(host, "cpu", x[:1], steps)
+    e_err = float((enc[0].cpu() - enc_c[0]).abs().max())
+    e_scale = float(enc_c[0].abs().max())
+    err = float((out[0][1] - out_c[0][1]).abs().max())
+    scale = float(out_c[0][1].abs().max())
+    assert e_err <= 1e-3 * e_scale, (e_err, e_scale)
+    assert err <= 1e-3 * scale, (err, scale)
+    n = steps
+    for i, ((dtok, _), (ctok, cl)) in enumerate(zip(out, out_c)):
+        if top2_gap(cl) <= 10 * err:
+            print(f"[{tag}] whisper stream 0: near tie at step {i}; compared"
+                  f" {i} steps")
+            n = i
+            break
+        assert dtok == ctok, (i, dtok, ctok)
+    print(f"[{tag}] whisper stream 0, {device} vs host CPU: enc_out max abs "
+          f"err {e_err:.3g} (max {e_scale:.3g}); first decode logits "
+          f"{err:.3g} (max |logit| {scale:.3g}); greedy tokens equal over "
+          f"{n} of {steps} steps")
+    stats.update(enc_max_abs_err=e_err, enc_max=e_scale, host_max_abs_err=err,
+                 host_max_logit=scale, greedy_steps=n,
+                 wall_s_phase=time.perf_counter() - t_phase)
+    return stats
 
 
 def main() -> int:
@@ -1951,9 +2342,7 @@ def main() -> int:
 
     # -- phase 11: the MoE family -----------------------------------------
     # phase 10's model and engines went with serving_phase's frame
-    gc.collect()
-    torch.cuda.empty_cache()
-    assert torch.cuda.memory_allocated() < 2**30, torch.cuda.memory_allocated()
+    free_device()
     assert not torch.backends.cuda.matmul.allow_tf32
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1962,15 +2351,29 @@ def main() -> int:
     total = torch.cuda.get_device_properties(0).total_memory
     assert moe["peak_device_bytes"] < total, (moe["peak_device_bytes"], total)
     for check in (moe_host_phase, moe_layer_phase):
-        gc.collect()  # the last model goes before the next allocates
-        torch.cuda.empty_cache()
-        assert torch.cuda.memory_allocated() < 2**30, \
-            torch.cuda.memory_allocated()
+        free_device()
         moe["host" if check is moe_host_phase else "layer"] = check(tag)
     moe["launcher_launches"] = launcher_launches
     print(f"[{tag}] moe serving: {json.dumps(moe)}")
     print(f"[{tag}] phase 11 wall {time.perf_counter() - t0:.2f} s; peak "
           f"device memory {moe['peak_device_bytes']} of {total}; script "
+          f"wall so far {time.perf_counter() - t_script:.2f} s")
+
+    # -- phase 12: the SSM, hybrid and enc-dec families --------------------
+    free_device()
+    t0 = time.perf_counter()
+    for arch in SSM_ARCHS + (ENCDEC_ARCH,):
+        launcher_launches[arch] = launcher_phase(tk, tag, arch)
+    families = {}
+    for arch in SSM_ARCHS:
+        families[arch] = {}
+        for check in (ssm_serving_phase, ssm_host_phase):
+            free_device()
+            families[arch][check.__name__] = check(tag, arch)
+    free_device()
+    families[ENCDEC_ARCH] = whisper_phase(tag)
+    print(f"[{tag}] ssm, hybrid and enc-dec serving: {json.dumps(families)}")
+    print(f"[{tag}] phase 12 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")
 
     print(json.dumps({"kernels": [{

@@ -1,7 +1,7 @@
 """Serving launcher: placement of the decode dataflow, then prefill +
 continuous-batching decode of an assigned arch at smoke scale.
 
-Port of ``repro/launch/serve.py`` for the dense, VLM and MoE families:
+Port of ``repro/launch/serve.py`` for every family:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 4                      # on the CUDA device
@@ -12,7 +12,11 @@ As in the reference, ``--smoke`` cannot be turned off: the model served is
 the arch's ``SMOKE`` config, with weights drawn from a seeded generator.
 Under an MoE arch the slots share the experts' capacity buffers, so a
 request's tokens depend on the other requests in flight (see
-``serving/engine.py``).
+``serving/engine.py``).  An enc-dec arch (whisper-medium) runs its own
+branch, as in the reference: stub frames drawn N(0, 0.02) from seed 0 for
+``--requests`` streams of 16 frames, the encoder filling the cross K/V,
+then ``--max-new`` greedy decode steps from token 0 with one shared
+position.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ import torch
 from ..configs import get_config
 from ..core.problem import resolve_device
 from ..models.config import SHAPES
+from ..models import encdec as ed
 from ..models.registry import init_model
-from ..models.transformer import PENDING
 from ..serving import Engine, Request
 from .placement import PodTopology, plan_serving
 
@@ -49,13 +53,25 @@ def main(argv=None):
         print(f"[placement] decode dataflow -> slices {plan.stage_slices}")
 
     cfg = get_config(args.arch, smoke=True)
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{args.arch}: enc-dec serving is not ported yet (ROADMAP.md, "
-            f"Queue 1 {PENDING['encdec']})")
-
     model = init_model(cfg, torch.Generator(device=device).manual_seed(0),
                        device=device)
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 0.02, (args.requests, 16, cfg.d_model)).astype(np.float32))
+        cache = ed.init_encdec_cache(cfg, args.requests, 64, 16,
+                                     torch.float32, device=device)
+        cache, _ = ed.encdec_prefill(cfg, model, frames.to(device), cache)
+        tok = torch.zeros((args.requests, 1), dtype=torch.int32,
+                          device=device)
+        outs = []
+        for pos in range(args.max_new):
+            logits, cache = ed.encdec_decode_step(cfg, model, tok, cache, pos)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            outs.append(tok[:, 0].cpu().numpy())
+        print(f"{args.arch} (enc-dec): decoded {args.max_new} steps x "
+              f"{args.requests} streams: {np.stack(outs).T.tolist()}")
+        return
+
     eng = Engine(cfg, model, n_slots=args.slots, max_len=64,
                  temperature=args.temperature, top_k=20, device=device)
     rng = np.random.default_rng(0)

@@ -1,5 +1,5 @@
 """Model side of the port (mirrors ``repro.models``): configs, the dense,
-VLM and MoE transformer, the registry, and carrying weights across from
-the JAX package (``carry``)."""
+VLM, MoE, SSM and hybrid decoder-only LMs, the enc-dec backbone, the
+registry, and carrying weights across from the JAX package (``carry``)."""
 from .config import ModelConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES  # noqa: F401
 from .registry import init_model, make_batch  # noqa: F401

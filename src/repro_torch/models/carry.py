@@ -3,9 +3,12 @@
 The reference keeps a model's parameters as a pytree of arrays with the
 layers stacked: ``tree["blocks"]["attn"]["wq"]`` is (L, d, nq * hd).  The
 port's ``LM`` names the same array of layer ``l`` ``blocks.{l}.attn.wq``;
-DeepSeekMoE's ``dense_blocks`` stack the same way, and an MoE layer's
-expert weights ``tree["blocks"]["moe"]["wi"]`` (L, E, d, f) become
-``blocks.{l}.moe.wi`` (E, d, f).
+DeepSeekMoE's ``dense_blocks`` and the enc-dec's ``enc_blocks`` and
+``dec_blocks`` stack the same way, an MoE layer's expert weights
+``tree["blocks"]["moe"]["wi"]`` (L, E, d, f) become ``blocks.{l}.moe.wi``
+(E, d, f), and an SSM layer's ``tree["blocks"]["ssm"]["A_log"]`` becomes
+``blocks.{l}.ssm.A_log``.  The hybrid's ``shared_attn`` is one block, not
+stacked: ``shared_attn.attn.wq``.
 Both sides cross as numpy arrays, so nothing here imports the JAX package:
 
 - :func:`params_from_reference` builds the port's model from the
@@ -22,9 +25,11 @@ import torch
 
 from ..core.problem import resolve_device
 from .config import ModelConfig
+from .encdec import EncDec
 from .transformer import LM
 
-STACKED = ("dense_blocks", "blocks")  # the reference's layer-stacked subtrees
+# the reference's layer-stacked subtrees
+STACKED = ("dense_blocks", "blocks", "enc_blocks", "dec_blocks")
 
 
 def _leaves(tree, path=()):
@@ -42,13 +47,14 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def params_from_reference(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
-    """The port's model holding the reference's parameters ``tree`` (numpy
-    arrays; bfloat16 ones as JAX hands them to numpy), cast to the dtype
-    of the port's parameter (``cfg.dtype``; the MoE router float32), on
-    ``device``."""
+def params_from_reference(cfg: ModelConfig, tree: dict, *, device=None):
+    """The port's model (an ``EncDec`` for the enc-dec family, else an
+    ``LM``) holding the reference's parameters ``tree`` (numpy arrays;
+    bfloat16 ones as JAX hands them to numpy), cast to the dtype of the
+    port's parameter (``cfg.dtype``; the MoE router and the SSMs' ``A_log``
+    and ``D`` float32), on ``device``."""
     dev = resolve_device(device)
-    model = LM(cfg, device=dev)
+    model = (EncDec if cfg.family == "encdec" else LM)(cfg, device=dev)
     params = dict(model.named_parameters())
     filled = set()
     with torch.no_grad():
@@ -75,7 +81,7 @@ def params_from_reference(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
     return model
 
 
-def params_to_numpy(model: LM) -> dict:
+def params_to_numpy(model) -> dict:
     """The reference's pytree layout (layers stacked) as float32 numpy
     arrays; a bfloat16 model's values widen exactly."""
     tree: dict = {}

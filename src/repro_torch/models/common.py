@@ -42,18 +42,36 @@ def trunc_normal(generator: torch.Generator, shape, scale: float,
     return (t * scale).to(dtype)
 
 
+# The reference's initializers draw every matrix at ``d_in ** -0.5`` but
+# these leaves (by their last name), which they draw at a fixed scale.
+DRAW_SCALES = {"embed": 0.02, "dec_pos": 0.02, "conv_w": 0.3}
+# Matrices the reference sets to constants (Mamba-1's ``A_log``); the
+# module that owns one sets it when it is built.
+CONSTANT_MATRICES = ("A_log",)
+
+
 def draw_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every matrix of ``module`` from ``generator`` in place, as the
     reference's initializers do: truncated normals at ``d_in ** -0.5``
     (``d_in`` the second-to-last axis, so a stacked expert tensor (E, d_in,
-    d_out) too), the ``embed`` table at 0.02.  Vectors keep their values
-    (biases zero, norm weights one)."""
+    d_out) too), or at the leaf's scale in ``DRAW_SCALES``.  Vectors and
+    ``CONSTANT_MATRICES`` keep the values their modules set (biases zero,
+    norm weights one, the SSM constants)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if p.ndim >= 2:
-                scale = 0.02 if name == "embed" else p.shape[-2] ** -0.5
-                p.copy_(trunc_normal(generator, p.shape, scale, p.dtype))
+            leaf = name.rsplit(".", 1)[-1]
+            if p.ndim < 2 or leaf in CONSTANT_MATRICES:
+                continue
+            scale = DRAW_SCALES.get(leaf, p.shape[-2] ** -0.5)
+            p.copy_(trunc_normal(generator, p.shape, scale, p.dtype))
     return module
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` in JAX's formulation,
+    max(x, 0) + log1p(exp(-|x|)) (torch's own softplus switches to x
+    above a threshold)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def rms_norm(x, w, eps):

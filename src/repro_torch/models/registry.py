@@ -14,17 +14,21 @@ import numpy as np
 import torch
 
 from ..core.problem import resolve_device
+from . import encdec as encdec_mod
 from . import transformer as lm_mod
 from .common import dtype_of
 from .config import ModelConfig, ShapeConfig
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, *,
-               device=None) -> lm_mod.LM:
+               device=None):
     """The model of ``cfg`` with weights drawn from ``generator``, on
-    ``device`` (CUDA unless the caller asks for the CPU).  Dense, VLM and
-    MoE only: the other families raise ``NotImplementedError``."""
-    return lm_mod.init_lm(cfg, generator, device=resolve_device(device))
+    ``device`` (CUDA unless the caller asks for the CPU): an ``EncDec``
+    for the enc-dec family, else an ``LM``."""
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return encdec_mod.init_encdec(cfg, generator, device=dev)
+    return lm_mod.init_lm(cfg, generator, device=dev)
 
 
 # -- shape-cell input construction -------------------------------------------

@@ -1,8 +1,9 @@
-"""Decoder-only LM assembly for the dense, VLM and MoE families.
+"""Decoder-only LM assembly for the dense, VLM, MoE, SSM and hybrid families.
 
 Port of ``repro/models/transformer.py``.  The model is an ``LM`` module
-holding ``nn.ModuleList``s of ``Block``s (norms, attention, and an MLP or
-an MoE); the reference's functional names (``init_lm``, ``lm_forward``,
+holding ``nn.ModuleList``s of blocks: ``Block``s (norms, attention, and an
+MLP or an MoE) or ``SSMBlock``s (a norm and a Mamba mixer); the
+reference's functional names (``init_lm``, ``lm_forward``,
 ``init_lm_cache``, ``lm_decode_step``, ``lm_prefill``) are thin functions
 over it.  Parameters keep the reference's names and ``(d_in, d_out)``
 layouts: the reference's stacked ``blocks/attn/wq[l]`` is the port's
@@ -10,12 +11,15 @@ layouts: the reference's stacked ``blocks/attn/wq[l]`` is the port's
 
 DeepSeekMoE's leading dense layers are ``dense_blocks``, the MoE layers
 after them ``blocks``; both share one KV cache, the dense layers its
-leading ``first_dense_layers`` slices.
+leading ``first_dense_layers`` slices.  The zamba2 hybrid holds one dense
+``shared_attn`` block, called after the *first* mamba block of each group
+of ``attn_every`` (and of the tail), with its own KV cache slice per call
+site (``hybrid_schedule``).
 
 The reference scans its layers under remat; the port runs them in a Python
 loop, eagerly.  The VLM's image frontend is a stub in both: precomputed
-patch embeddings are prepended to the text tokens.  The SSM, hybrid and
-enc-dec families are not ported yet.
+patch embeddings are prepended to the text tokens.  The enc-dec family is
+``encdec.py``'s.
 """
 from __future__ import annotations
 
@@ -23,29 +27,35 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .common import Norm, draw_weights, dtype_of, matmul
 from .config import ModelConfig
 from .mlp import MLP
 from .moe import MoE
 
-# Where each family not served by the dense block waits (ROADMAP.md, Queue 1).
-PENDING = {
-    "ssm": "item 12b, models/ssm.py",
-    "hybrid": "item 12c, the zamba2 hybrid",
-    "encdec": "item 12d, models/encdec.py",
-}
-PORTED = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")  # the LM's; not encdec
 
 
 def check_family(cfg: ModelConfig):
-    """Raise unless the port has ``cfg``'s family."""
-    if cfg.family in PORTED:
-        return
-    if cfg.family in PENDING:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 {PENDING[cfg.family]})")
-    raise ValueError(cfg.family)
+    """Raise unless ``cfg`` is a decoder-only LM (enc-dec configs are
+    ``encdec.py``'s)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family!r} family is not a decoder-only "
+            f"LM" + ("; use models/encdec.py" if cfg.family == "encdec"
+                     else ""))
+
+
+def check_carry(x, y, what):
+    """The reference scans its layers with the residual as the carry, and
+    rejects a body that changes its type (a bfloat16 model's attention
+    over a float32 cache, or over a float32 encoder output, promotes the
+    residual)."""
+    if y.dtype != x.dtype:
+        raise TypeError(
+            f"{what}'s output residual is {y.dtype}, its input {x.dtype}: "
+            f"the reference's layer scan rejects this carry (a {x.dtype} "
+            f"model attending to float32 keys and values)")
 
 
 class Block(nn.Module):
@@ -90,11 +100,54 @@ class Block(nn.Module):
         return self._ffn(x + h)[0]
 
 
+class SSMBlock(nn.Module):
+    """``ln`` and ``ssm`` (``Mamba1`` or ``Mamba2`` by ``cfg.ssm.version``),
+    with no MLP: the reference's ``_init_block(kind="ssm")``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = Norm(cfg, dtype=dtype_of(cfg.dtype), device=device)
+        self.ssm = ssm_mod.mixer(cfg, device=device)
+
+    def forward(self, x, state=None):
+        """The reference's ``_ssm_block_fwd``: returns (x, final state)."""
+        out, st = ssm_mod.block_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),
+                                             state=state)
+        return x + out, st
+
+    def decode(self, x, state):
+        out, st = ssm_mod.decode_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),
+                                              state)
+        return x + out, st
+
+
+def hybrid_attn_layers(cfg) -> int:
+    """Number of shared-attention call sites in the zamba2-style hybrid."""
+    return (cfg.n_layers + cfg.attn_every - 1) // cfg.attn_every
+
+
+def hybrid_schedule(cfg):
+    """The hybrid's layer order, as the reference's ``_hybrid_split``
+    groups it: each group of ``attn_every`` mamba blocks (and the tail) is
+    ``[mamba, shared_attn, mamba x (rest)]``, the shared block after the
+    group's *first* mamba block.  Yields ("ssm", layer) and ("attn", call
+    site)."""
+    E = cfg.attn_every
+    for site, start in enumerate(range(0, cfg.n_layers, E)):
+        yield "ssm", start
+        yield "attn", site
+        for layer in range(start + 1, min(start + E, cfg.n_layers)):
+            yield "ssm", layer
+
+
 class LM(nn.Module):
     """``embed`` (V, d), for DeepSeekMoE ``dense_blocks`` (its
     ``first_dense_layers`` dense layers of hidden size ``d_ff_dense``),
-    ``blocks``, ``final_norm`` and, untied, ``lm_head`` (d, V).  Weights
-    are allocated, not drawn: ``init_lm`` draws them,
+    ``blocks`` (``Block``s, or ``SSMBlock``s for the SSM and hybrid
+    families), for the hybrid ``shared_attn`` (one dense ``Block``),
+    ``final_norm`` and, untied, ``lm_head`` (d, V).  Weights are
+    allocated, not drawn: ``init_lm`` draws them,
     ``carry.params_from_reference`` copies them."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
@@ -104,14 +157,21 @@ class LM(nn.Module):
         dt = dtype_of(cfg.dtype)
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model,
                                               dtype=dt, device=device))
-        moe = cfg.family == "moe"
-        nd = cfg.moe.first_dense_layers if moe else 0
-        if nd:
-            self.dense_blocks = nn.ModuleList(
-                Block(cfg, d_ff=cfg.moe.d_ff_dense or cfg.d_ff, device=device)
-                for _ in range(nd))
-        self.blocks = nn.ModuleList(Block(cfg, moe=moe, device=device)
-                                    for _ in range(cfg.n_layers - nd))
+        if cfg.family in ("ssm", "hybrid"):
+            self.blocks = nn.ModuleList(SSMBlock(cfg, device=device)
+                                        for _ in range(cfg.n_layers))
+            if cfg.family == "hybrid":
+                self.shared_attn = Block(cfg, device=device)
+        else:
+            moe = cfg.family == "moe"
+            nd = cfg.moe.first_dense_layers if moe else 0
+            if nd:
+                self.dense_blocks = nn.ModuleList(
+                    Block(cfg, d_ff=cfg.moe.d_ff_dense or cfg.d_ff,
+                          device=device)
+                    for _ in range(nd))
+            self.blocks = nn.ModuleList(Block(cfg, moe=moe, device=device)
+                                        for _ in range(cfg.n_layers - nd))
         self.final_norm = Norm(cfg, dtype=dt, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab,
@@ -134,14 +194,43 @@ class LM(nn.Module):
         """Every block in cache order: the dense-first ones, then the rest."""
         return [*getattr(self, "dense_blocks", ()), *self.blocks]
 
+    def _ssm_schedule(self):
+        if self.cfg.family == "hybrid":
+            return hybrid_schedule(self.cfg)
+        return (("ssm", i) for i in range(self.cfg.n_layers))
+
+    def _sequence(self, x, positions, *, q_chunk, kv_chunk, cache=None):
+        """Every layer over the whole sequence; with ``cache``, the
+        attention layers write their k/v from position 0 and the SSM
+        layers their final states, cast to the cache's dtype.  Returns
+        (x, the MoE layers' aux losses)."""
+        kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if self.cfg.family not in ("ssm", "hybrid"):
+            auxs = []
+            for i, blk in enumerate(self.layers()):
+                kv = None if cache is None else {
+                    "k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
+                x, aux = blk(x, positions, cache=kv, **kw)
+                if aux is not None:
+                    auxs.append(aux)
+            return x, auxs
+        for kind, i in self._ssm_schedule():
+            if kind == "attn":
+                kv = None if cache is None else {
+                    "k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
+                x, _ = self.shared_attn(x, positions, cache=kv, **kw)
+                continue
+            x, st = self.blocks[i](x)
+            if cache is not None:
+                for name, t in st.items():
+                    cache["ssm"][name][i].copy_(t)
+        return x, []
+
     def forward(self, tokens, *, patch_embeds=None, q_chunk=512,
                 kv_chunk=1024, logits_mode="all"):
         x, positions = self._inputs(tokens, patch_embeds)
-        auxs = []
-        for blk in self.layers():
-            x, aux = blk(x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk)
-            if aux is not None:
-                auxs.append(aux)
+        x, auxs = self._sequence(x, positions, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk)
         # the MoE layers' summed aux loss (the dense-first layers add none)
         aux = (torch.stack(auxs).sum() if auxs else
                torch.zeros((), dtype=torch.float32, device=x.device))
@@ -155,28 +244,35 @@ class LM(nn.Module):
     def prefill(self, tokens, cache, *, patch_embeds=None, q_chunk=512,
                 kv_chunk=1024):
         x, positions = self._inputs(tokens, patch_embeds)
-        ck = cache["attn"]
-        for i, blk in enumerate(self.layers()):
-            x, _ = blk(x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                       cache={"k": ck["k"][i], "v": ck["v"][i]})
+        x, _ = self._sequence(x, positions, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, cache=cache)
         x = self.final_norm(x[:, -1:])
         return self._head(x), cache
 
     def decode_step(self, token, cache, pos):
         x = self.embed[token.long()]
-        ck = cache["attn"]
-        for i, blk in enumerate(self.layers()):
-            y = blk.decode(x, {"k": ck["k"][i], "v": ck["v"][i]}, pos)
-            if y.dtype != x.dtype:
-                # The reference scans the layers with x as the carry and
-                # rejects a body that changes its type (a bfloat16 model
-                # over a float32 cache promotes the residual).
-                raise TypeError(
-                    f"the layer's output residual is {y.dtype}, its input "
-                    f"{x.dtype}: the reference's layer scan rejects this "
-                    f"carry (a {x.dtype} model decoding against a "
-                    f"{ck['k'].dtype} cache)")
-            x = y
+        if self.cfg.family in ("ssm", "hybrid"):
+            for kind, i in self._ssm_schedule():
+                if kind == "attn":
+                    ck = cache["attn"]
+                    y = self.shared_attn.decode(
+                        x, {"k": ck["k"][i], "v": ck["v"][i]}, pos)
+                    check_carry(x, y, f"the shared block at call site {i}")
+                    x = y
+                    continue
+                cs = cache["ssm"]
+                y, st = self.blocks[i].decode(
+                    x, {name: t[i] for name, t in cs.items()})
+                check_carry(x, y, f"mamba layer {i}")
+                x = y
+                for name, t in st.items():
+                    cs[name][i].copy_(t)
+        else:
+            ck = cache["attn"]
+            for i, blk in enumerate(self.layers()):
+                y = blk.decode(x, {"k": ck["k"][i], "v": ck["v"][i]}, pos)
+                check_carry(x, y, f"layer {i}")
+                x = y
         x = self.final_norm(x)
         return self._head(x), cache
 
@@ -192,11 +288,11 @@ def _check_model(cfg: ModelConfig, model: LM):
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
             device=None) -> LM:
-    """The model with weights drawn from ``generator``: truncated normals,
-    the embedding at scale 0.02 and every matrix (stacked expert weights
-    too) at ``d_in ** -0.5``, as the reference draws them (its random
-    stream is JAX's and is not reproduced); biases zero, norm weights
-    one.  The MoE router stays float32 in every config."""
+    """The model with weights drawn from ``generator``: truncated normals
+    at the reference's scales (``common.draw_weights``; its random stream
+    is JAX's and is not reproduced); biases zero, norm weights one, the SSM
+    constants as the reference sets them.  The MoE router and the SSMs'
+    ``A_log`` and ``D`` stay float32 in every config."""
     return draw_weights(LM(cfg, device=device), generator)
 
 
@@ -219,11 +315,25 @@ def lm_forward(cfg: ModelConfig, model: LM, tokens, *, patch_embeds=None,
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
                   device=None):
-    """Decode cache: ``{"attn": {"k", "v"}}``, each (L, B, max_len, nkv, hd)."""
+    """Decode cache, per family: ``{"attn": {"k", "v"}}``, each (L, B,
+    max_len, nkv, hd); for the SSM family ``{"ssm": {"conv", "ssm"}}``, the
+    layers' states stacked (L, B, ...), ``ssm`` float32 in any ``dtype``;
+    for the hybrid both, ``attn`` with one slice per shared-block call
+    site."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd())
-    return {"attn": {k: torch.zeros(shape, dtype=dtype, device=device)
-                     for k in ("k", "v")}}
+    attn = cfg.n_layers
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        st = ssm_mod.state_init(cfg, batch, dtype, device=device)
+        cache["ssm"] = {k: t[None].repeat((cfg.n_layers,) + (1,) * t.ndim)
+                        for k, t in st.items()}
+        if cfg.family == "ssm":
+            return cache
+        attn = hybrid_attn_layers(cfg)
+    shape = (attn, batch, max_len, cfg.n_kv_heads, cfg.hd())
+    cache["attn"] = {k: torch.zeros(shape, dtype=dtype, device=device)
+                     for k in ("k", "v")}
+    return cache
 
 
 @torch.no_grad()
@@ -237,8 +347,9 @@ def lm_decode_step(cfg: ModelConfig, model: LM, token, cache, pos):
 @torch.no_grad()
 def lm_prefill(cfg: ModelConfig, model: LM, tokens, cache, *,
                patch_embeds=None, q_chunk=512, kv_chunk=1024):
-    """Prefill: run the full sequence, write each layer's k/v into the
-    cache from position 0 (in place), return last-token logits."""
+    """Prefill: run the full sequence, write each attention layer's k/v
+    into the cache from position 0 and each SSM layer's final states (in
+    place, cast to the cache's dtype), return last-token logits."""
     _check_model(cfg, model)
     return model.prefill(tokens, cache, patch_embeds=patch_embeds,
                          q_chunk=q_chunk, kv_chunk=kv_chunk)

@@ -15,11 +15,16 @@ them all, so a pair of one slot can be dropped because of the others'
 routing.  The same prompt can therefore decode differently in another
 batch, or through ``lm_forward`` over the whole sequence.
 
-Float32 only, as the reference: its engine keeps the KV cache in float32
-(``serving/engine.py:63``), a bfloat16 model's decode attention then
-promotes the residual to float32, and its layer scan rejects the carry
-(``models/transformer.py:324``).  The port raises for a bfloat16 config
-rather than serve what the reference cannot.
+The engine serves the decoder-only families: dense, VLM, MoE, SSM and
+hybrid (enc-dec raises, as the reference's assertion does).  It keeps its
+cache in float32, as the reference's does (``serving/engine.py:63``).  A
+bfloat16 model's decode attention then promotes the residual to float32
+and the reference's layer scan rejects the carry
+(``models/transformer.py:324``, ``:383`` for the hybrid's shared block), so
+for every family with attention the port raises for a bfloat16 config
+rather than serve what the reference cannot.  The SSM family has no
+attention: its decode keeps the residual in the model's dtype over the
+float32 states, and both engines serve it in bfloat16.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ def sample_logits(generator: torch.Generator, logits, *,
 def cache_insert(cache_pool, cache_one, slot: int):
     """Copy a batch-1 cache into slot ``slot`` of the pool, in place.
 
-    Attention caches have layout (L, B, S, ...)."""
+    Attention caches have layout (L, B, S, ...); SSM states (L, B, ...)."""
     for key, pool in cache_pool.items():
         one = cache_one[key]
         if isinstance(pool, dict):
@@ -88,13 +93,13 @@ class Engine:
         ``device="cpu"``)."""
         self.device = resolve_device(device)
         lm.check_family(cfg)
-        if cfg.dtype != "float32":
+        if cfg.dtype != "float32" and cfg.family != "ssm":
             raise ValueError(
-                f"{cfg.name}: the engine serves float32 configs only, not "
-                f"{cfg.dtype}.  The reference engine keeps its KV cache in "
-                "float32 (serving/engine.py:63), so a bfloat16 model's "
-                "decode attention promotes the residual to float32 and the "
-                "reference's layer scan rejects the carry "
+                f"{cfg.name}: the engine serves {cfg.family} configs in "
+                f"float32 only, not {cfg.dtype}.  The reference engine "
+                "keeps its KV cache in float32 (serving/engine.py:63), so a "
+                "bfloat16 model's decode attention promotes the residual to "
+                "float32 and the reference's layer scan rejects the carry "
                 "(models/transformer.py:324); serve cfg.with_(dtype="
                 "'float32')")
         self.cfg, self.model = cfg, model

@@ -53,6 +53,8 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.models",
                                     "repro_torch.models.carry",
                                     "repro_torch.models.moe",
+                                    "repro_torch.models.ssm",
+                                    "repro_torch.models.encdec",
                                     "repro_torch.launch.placement",
                                     "repro_torch.launch.serve",
                                     "repro_torch.serving"])

@@ -35,6 +35,9 @@ DENSE = ["qwen2-0.5b", "llama3.2-1b", "qwen2.5-14b", "stablelm-3b",
          "internvl2-2b"]
 # deepseek's SMOKE keeps its dense-first layer: layer 0 dense, 1-2 MoE
 MOE = ["phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"]
+SSM = ["falcon-mamba-7b", "zamba2-7b"]
+# zamba2's SMOKE (4 layers, attn_every 2) has no tail group; 5 layers do
+HYBRID_TAIL = dict(n_layers=5)
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
 _MODELS: dict = {}
@@ -42,12 +45,13 @@ _MODELS: dict = {}
 R_decode = jax.jit(R_lm.lm_decode_step, static_argnums=0)
 
 
-def models(arch, dtype="float32"):
-    """(reference cfg, reference params, port cfg, port model), cached."""
-    key = (arch, dtype)
+def models(arch, dtype="float32", **fields):
+    """(reference cfg, reference params, port cfg, port model), cached;
+    ``fields`` override the SMOKE config's."""
+    key = (arch, dtype, tuple(sorted(fields.items())))
     if key not in _MODELS:
-        rcfg = RC.get_config(arch, smoke=True).with_(dtype=dtype)
-        tcfg = TC.get_config(arch, smoke=True).with_(dtype=dtype)
+        rcfg = RC.get_config(arch, smoke=True).with_(dtype=dtype, **fields)
+        tcfg = TC.get_config(arch, smoke=True).with_(dtype=dtype, **fields)
         params, _ = R_reg.init_model(rcfg, jax.random.key(7))
         tree = jax.tree.map(np.asarray, params)
         _MODELS[key] = (rcfg, params, tcfg,
@@ -287,14 +291,37 @@ def test_init_model_draws_every_moe_parameter(arch):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
-                                  "whisper-medium"])
-def test_unported_families_raise(arch):
-    tcfg = TC.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T_reg.init_model(tcfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", SSM + ["whisper-medium"])
+def test_carry_round_trip_ssm_hybrid_encdec(arch, dtype):
+    """The SSM blocks with their float32 ``A_log`` and ``D``, the hybrid's
+    unstacked ``shared_attn`` and the enc-dec's stacked ``enc_blocks`` and
+    ``dec_blocks`` cross and come back bitwise."""
+    rcfg, params, _, model = models(arch, dtype)
+    tree = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), params)
+    back = params_to_numpy(model)
+    assert jax.tree.structure(tree) == jax.tree.structure(back)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    for name, p in model.named_parameters():  # each leaf keeps its dtype
+        ref = params
+        for k in name.split("."):
+            ref = ref if k.isdigit() else ref[k]  # a layer of a stack
+        assert str(p.dtype).split(".")[1] == str(ref.dtype), name
+    assert ("shared_attn" in back) == (rcfg.family == "hybrid")
+
+
+def test_lm_refuses_enc_dec():
+    """The enc-dec family is ``encdec.py``'s: ``LM`` and its cache refuse
+    it, and ``init_model`` builds an ``EncDec``."""
+    tcfg = TC.get_config("whisper-medium", smoke=True)
+    with pytest.raises(ValueError, match="encdec"):
+        T_lm.LM(tcfg, device="cpu")
+    with pytest.raises(ValueError, match="encdec"):
         T_lm.init_lm_cache(tcfg, 1, 8, torch.float32, device="cpu")
+    model = T_reg.init_model(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    assert type(model).__name__ == "EncDec"
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b",
@@ -423,6 +450,144 @@ def test_lm_forward_bfloat16(arch):
 
 
 # -- prefill and decode ---------------------------------------------------
+
+
+SSM_CASES = [("falcon-mamba-7b", {}), ("zamba2-7b", {}),
+             ("zamba2-7b", HYBRID_TAIL)]
+
+
+def _case_id(case):
+    arch, fields = case
+    return arch + ("-L5" if fields else "")
+
+
+@pytest.mark.parametrize("mode", ["all", "last", "none"])
+@pytest.mark.parametrize("case", SSM_CASES, ids=_case_id)
+def test_lm_forward_ssm_hybrid(case, mode):
+    """falcon-mamba (mamba1 blocks) and zamba2 (mamba2 blocks and the
+    shared block after the first of each group): SMOKE, and 5 layers,
+    whose tail group calls the shared block a third time."""
+    arch, fields = case
+    rcfg, params, tcfg, model = models(arch, **fields)
+    tok = tokens(rcfg, seed=16)
+    ref, raux = R_lm.lm_forward(rcfg, params, tok, logits_mode=mode,
+                                remat=False)
+    with torch.no_grad():
+        out, aux = T_lm.lm_forward(tcfg, model, torch.from_numpy(tok),
+                                   logits_mode=mode)
+    assert_close(ref, out, what=mode)
+    assert float(raux) == float(aux) == 0.0
+
+
+@pytest.mark.parametrize("case", [("falcon-mamba-7b", dict(n_layers=1)),
+                                  ("zamba2-7b", dict(n_layers=2))],
+                         ids=_case_id)
+def test_lm_forward_ssm_long_sequences(case):
+    """S = 1024: the Mamba-1 scan in two chunks of 512; the Mamba-2 block's
+    chunked SSD (4 chunks of 256, bfloat16 inside a chunk, hence the
+    bfloat16 tolerance; see ``tests/test_torch_ssm.py``)."""
+    arch, fields = case
+    rcfg, params, tcfg, model = models(arch, **fields)
+    tok = tokens(rcfg, B=1, S=1024, seed=17)
+    ref, _ = R_lm.lm_forward(rcfg, params, tok, remat=False)
+    with torch.no_grad():
+        out, _ = T_lm.lm_forward(tcfg, model, torch.from_numpy(tok))
+    assert_close(ref, out, "bfloat16" if rcfg.family == "hybrid"
+                 else "float32")
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_lm_forward_ssm_bfloat16(arch):
+    rcfg, params, tcfg, model = models(arch, "bfloat16")
+    tok = tokens(rcfg, seed=18)
+    ref, _ = R_lm.lm_forward(rcfg, params, tok, remat=False)
+    with torch.no_grad():
+        out, _ = T_lm.lm_forward(tcfg, model, torch.from_numpy(tok))
+    assert out.dtype == torch.bfloat16
+    assert_close(ref, out, "bfloat16")
+
+
+def assert_caches_close(rc, tc, tol="float32", what=""):
+    """Every leaf of the port's cache has the reference's dtype and values
+    within the tolerance ``tol``."""
+    for group, leaves in tc.items():
+        for k, v in leaves.items():
+            assert str(v.dtype).split(".")[1] == str(rc[group][k].dtype), \
+                (what, group, k)
+            assert_close(rc[group][k], v, tol, what=(what, group, k))
+
+
+@pytest.mark.parametrize("pos", ["scalar", "per_slot"])
+@pytest.mark.parametrize("case", SSM_CASES, ids=_case_id)
+def test_lm_prefill_and_decode_ssm_hybrid(case, pos):
+    """lm_prefill into the whole cache (the SSM states cast to its dtype,
+    the hybrid's k/v per call site), then 4 decode steps; the logits and
+    every cache leaf after each."""
+    arch, fields = case
+    rcfg, params, tcfg, model = models(arch, **fields)
+    B, S, max_len = 3, 9, 24
+    prompt = tokens(rcfg, B=B, S=S, seed=19)
+    rc, _ = R_lm.init_lm_cache(rcfg, B, max_len, jnp.float32)
+    ref, rc = R_lm.lm_prefill(rcfg, params, prompt, rc)
+    tc = T_lm.init_lm_cache(tcfg, B, max_len, torch.float32, device="cpu")
+    out, tc = T_lm.lm_prefill(tcfg, model, torch.from_numpy(prompt), tc)
+    assert sorted(tc) == sorted(rc)
+    assert_close(ref, out, what="prefill")
+    assert_caches_close(rc, tc, what="prefill")
+    rng = np.random.default_rng(20)
+    for i in range(4):
+        tok = rng.integers(0, rcfg.vocab, (B, 1)).astype(np.int32)
+        p = (np.int32(S + i) if pos == "scalar"
+             else np.array([S + i, 3 + 2 * i, 1], np.int32))
+        ref, rc = R_decode(rcfg, params, tok, rc, jnp.asarray(p))
+        out, tc = T_lm.lm_decode_step(tcfg, model, torch.from_numpy(tok), tc,
+                                      torch.from_numpy(np.asarray(p)))
+        assert_close(ref, out, what=f"step {i}")
+        assert_caches_close(rc, tc, what=f"step {i}")
+
+
+def test_ssm_decode_over_a_float32_cache_in_bfloat16():
+    """The reference's Mamba decode keeps the residual in the model's dtype
+    over float32 states (the conv state promotes, the block's output is
+    cast back): a bfloat16 falcon-mamba decodes against the engine's
+    float32 cache in both packages."""
+    rcfg, params, tcfg, model = models("falcon-mamba-7b", "bfloat16")
+    tok = tokens(rcfg, B=2, S=5, seed=21)
+    rc, _ = R_lm.init_lm_cache(rcfg, 2, 8, jnp.float32)
+    _, rc = R_lm.lm_prefill(rcfg, params, tok, rc)
+    tc = T_lm.init_lm_cache(tcfg, 2, 8, torch.float32, device="cpu")
+    T_lm.lm_prefill(tcfg, model, torch.from_numpy(tok), tc)
+    for i in range(3):
+        step = tok[:, i:i + 1]
+        ref, rc = R_lm.lm_decode_step(rcfg, params, step, rc, jnp.int32(5 + i))
+        out, tc = T_lm.lm_decode_step(tcfg, model, torch.from_numpy(step),
+                                      tc, 5 + i)
+        assert out.dtype == torch.bfloat16
+        assert_close(ref, out, "bfloat16", what=i)
+        # float32 states of a bfloat16 model's values
+        assert_caches_close(rc, tc, "bfloat16", what=i)
+
+
+def test_hybrid_bf16_over_f32_cache_fails_in_both():
+    """zamba2's shared block decodes attention against the float32 cache,
+    which promotes the residual: the reference's group scan rejects the
+    carry, and the port raises too."""
+    rcfg, params, tcfg, model = models("zamba2-7b", "bfloat16")
+    tok = tokens(rcfg, B=2, S=1)
+    rc, _ = R_lm.init_lm_cache(rcfg, 2, 8, jnp.float32)
+    with pytest.raises(TypeError, match="carry"):
+        R_lm.lm_decode_step(rcfg, params, tok, rc, jnp.int32(0))
+    tc = T_lm.init_lm_cache(tcfg, 2, 8, torch.float32, device="cpu")
+    with pytest.raises(TypeError, match="carry"):
+        T_lm.lm_decode_step(tcfg, model, torch.from_numpy(tok), tc, 0)
+    # over a bfloat16 cache both decode
+    rc, _ = R_lm.init_lm_cache(rcfg, 2, 8, jnp.bfloat16)
+    ref, _ = R_lm.lm_decode_step(rcfg, params, tok, rc, jnp.int32(0))
+    tc = T_lm.init_lm_cache(tcfg, 2, 8, torch.bfloat16, device="cpu")
+    out, _ = T_lm.lm_decode_step(tcfg, model, torch.from_numpy(tok), tc, 0)
+    assert_close(ref, out, "bfloat16")
+
+
 
 
 @pytest.mark.parametrize("arch", DENSE + MOE)

@@ -7,6 +7,7 @@ float32 tolerance of ``test_torch_models.py``.  A draw from
 ``jax.random.categorical`` cannot be matched by a torch generator, so
 sampled tokens are checked for support (inside the top-k set) and for
 seeded reproducibility within the port."""
+import ast
 import contextlib
 import dataclasses
 import io
@@ -247,9 +248,111 @@ def test_bfloat16_engine_raises_where_the_reference_fails():
         Engine(tcfg, model, n_slots=2, max_len=32, device="cpu")
 
 
-def test_engine_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(TCFG.with_(family="ssm"), None, device="cpu")
+def test_engine_refuses_enc_dec():
+    """The reference's engine asserts a decoder-only family; the port's
+    raises for whisper too."""
+    rcfg = RC.get_config("whisper-medium", smoke=True)
+    with pytest.raises(AssertionError):
+        R_Engine(rcfg, None)
+    with pytest.raises(ValueError, match="encdec"):
+        Engine(TC.get_config("whisper-medium", smoke=True), None,
+               device="cpu")
+
+
+def _carried(arch, dtype="float32"):
+    """The reference's SMOKE params (seed 0) and the port's model holding
+    them."""
+    rcfg = RC.get_config(arch, smoke=True).with_(dtype=dtype)
+    tcfg = TC.get_config(arch, smoke=True).with_(dtype=dtype)
+    params, _ = R_init(rcfg, jax.random.key(0))
+    return rcfg, params, tcfg, params_from_reference(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _requests(vocab, lens=(6, 11, 4, 9), new=7):
+    rng = np.random.default_rng(3)
+    return [(i, rng.integers(0, vocab, L).astype(np.int32), new)
+            for i, L in enumerate(lens)]
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+def test_ssm_engine_greedy_tokens_equal_the_reference_engine(arch):
+    """2 slots, 4 requests (slots refilled): the same tokens, finishing
+    order and ticks; the SSM states (L, B, ...) inserted per slot and, for
+    zamba2, the shared block's per-call-site KV caches end equal."""
+    rcfg, params, tcfg, model = _carried(arch)
+    ref = R_Engine(rcfg, params, n_slots=2, max_len=48, temperature=0.0)
+    eng = Engine(tcfg, model, n_slots=2, max_len=48, temperature=0.0,
+                 device="cpu")
+    for rid, p, new in _requests(tcfg.vocab):
+        ref.submit(R_Request(rid=rid, prompt=p, max_new=new))
+        eng.submit(Request(rid=rid, prompt=p, max_new=new))
+    rdone, rticks = ref.run()
+    done, ticks = eng.run()
+    assert ticks == rticks
+    assert [(r.rid, r.out) for r in done] == [(r.rid, r.out) for r in rdone]
+    np.testing.assert_array_equal(eng.pos, ref.pos)
+    assert sorted(eng.cache) == sorted(ref.cache)
+    for group, leaves in eng.cache.items():
+        for k, v in leaves.items():
+            a = np.asarray(ref.cache[group][k])
+            assert np.abs(a - v.numpy()).max() <= 2e-5 * np.abs(a).max(), \
+                (group, k)
+
+
+def test_bfloat16_ssm_engine_serves_in_both():
+    """A bfloat16 falcon-mamba decodes over the engines' float32 states
+    without promoting its residual, so the reference's engine serves it,
+    and so does the port's: the same greedy tokens and ticks as the
+    reference's engine (the smallest top-2 gap of these decodes is 0.094,
+    six bfloat16 steps at the logits' magnitude, so no near tie), its
+    float32 states within the bfloat16 tolerance of the reference's, and
+    its tokens equal to its own lm_prefill + lm_decode_step at batch 1
+    (one slot, as each slot's state is its own)."""
+    rcfg, params, tcfg, model = _carried("falcon-mamba-7b", "bfloat16")
+    reqs = _requests(tcfg.vocab, lens=(6, 9), new=5)
+    ref = R_Engine(rcfg, params, n_slots=2, max_len=32)
+    for rid, p, new in reqs:
+        ref.submit(R_Request(rid=rid, prompt=p, max_new=new))
+    rdone, rticks = ref.run()
+    assert [len(r.out) for r in rdone] == [5, 5]
+    eng = Engine(tcfg, model, n_slots=2, max_len=32, device="cpu")
+    for rid, p, new in reqs:
+        eng.submit(Request(rid=rid, prompt=p, max_new=new))
+    done, ticks = eng.run()
+    assert ticks == rticks
+    assert [(r.rid, r.out) for r in done] == [(r.rid, r.out) for r in rdone]
+    for group, leaves in eng.cache.items():
+        for k, v in leaves.items():
+            assert v.dtype == torch.float32, (group, k)
+            a = np.asarray(ref.cache[group][k], np.float32)
+            assert np.abs(a - v.numpy()).max() <= 5e-2 * np.abs(a).max(), \
+                (group, k)
+    for req in done:
+        cache = T_lm.init_lm_cache(tcfg, 1, 32, torch.float32, device="cpu")
+        lg, cache = T_lm.lm_prefill(tcfg, model,
+                                    torch.from_numpy(req.prompt[None]), cache)
+        want = [int(torch.argmax(lg[0, -1]))]
+        for i in range(4):
+            lg, cache = T_lm.lm_decode_step(
+                tcfg, model, torch.tensor([[want[-1]]]), cache,
+                len(req.prompt) + i)
+            want.append(int(torch.argmax(lg[0, -1])))
+        assert req.out == want, req.rid
+
+
+def test_bfloat16_hybrid_engine_raises_where_the_reference_fails():
+    """zamba2's shared block attends to the float32 cache: the reference's
+    first decode tick fails in its group scan, and the port refuses the
+    config up front."""
+    rcfg, params, tcfg, model = _carried("zamba2-7b", "bfloat16")
+    ref = R_Engine(rcfg, params, n_slots=2, max_len=32)
+    ref.submit(R_Request(rid=0, prompt=np.arange(5, dtype=np.int32),
+                         max_new=4))
+    with pytest.raises(TypeError, match="carry"):
+        ref.run()
+    with pytest.raises(ValueError, match="float32"):
+        Engine(tcfg, model, n_slots=2, max_len=32, device="cpu")
 
 
 def _run_main(main, argv):
@@ -259,16 +362,47 @@ def _run_main(main, argv):
     return out.getvalue().splitlines()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "internvl2-2b",
-                                  "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"])
-def test_serve_launcher_matches_the_reference(arch):
-    """Same placement line, same request, token and tick counts (the
-    sampled tokens themselves come from different generators)."""
+LAUNCHER_ARCHS = ["qwen2-0.5b", "internvl2-2b", "phi3.5-moe-42b-a6.6b",
+                  "deepseek-moe-16b", "falcon-mamba-7b", "zamba2-7b",
+                  "whisper-medium"]
+
+
+@pytest.mark.parametrize("arch,weights",
+                         [(a, "own") for a in LAUNCHER_ARCHS]
+                         + [("whisper-medium", "carried")])
+def test_serve_launcher_matches_the_reference(arch, weights, monkeypatch):
+    """Each launcher draws its own seed-0 weights ("own"): the same
+    placement line, and for the engine archs the same request, token and
+    tick counts (their weights and sampled tokens come from different
+    generators); whisper's enc-dec branch decodes ``--max-new`` in-vocab
+    greedy tokens for each stream.  With the reference's weights carried
+    into the port's launcher ("carried"), whisper's greedy tokens are
+    equal, every token of every stream."""
     argv = ["--arch", arch, "--requests", "3", "--max-new", "5"]
+    rcfg = RC.get_config(arch, smoke=True)
+    if weights == "carried":
+        _, _, _, model = _carried(arch)
+
+        def init_model(cfg, generator, *, device):
+            assert cfg == TC.get_config(arch, smoke=True)
+            assert device.type == "cpu"
+            return model
+        monkeypatch.setattr(T_serve, "init_model", init_model)
     ref = _run_main(_argv_main(R_serve.main), argv)
     port = _run_main(T_serve.main, argv + ["--device", "cpu"])
-    assert ref == port
     assert port[0].startswith("[placement]")
+    if rcfg.family != "encdec":
+        assert ref == port
+        assert port[-1].startswith(f"{arch}: served 3 requests")
+        return
+    head = f"{arch} (enc-dec): decoded 5 steps x 3 streams: "
+    assert len(port) == len(ref) == 2 and port[0] == ref[0]
+    assert port[1].startswith(head) and ref[1].startswith(head)
+    streams = ast.literal_eval(port[1][len(head):])
+    assert [len(s) for s in streams] == [5, 5, 5]
+    assert all(0 <= tok < rcfg.vocab for s in streams for tok in s)
+    if weights == "carried":
+        assert ref == port
 
 
 def _argv_main(main):
@@ -281,8 +415,3 @@ def _argv_main(main):
         finally:
             sys.argv = saved
     return run
-
-
-def test_serve_launcher_raises_for_enc_dec():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T_serve.main(["--arch", "whisper-medium", "--device", "cpu"])

@@ -3,9 +3,10 @@
     python3 tools/serve_profile.py [--ticks 8] [--arch qwen2-0.5b]
 
 Builds ``chip_smoke.py``'s phase-10 model (``--arch``: qwen2-0.5b, or
-phase 11's deepseek-moe-16b, at full width and depth, float32, weights from
-a generator seeded 2009), fills all 8 slots of an ``Engine`` (max_len 512)
-with the first 8 of phase 10's prompts, and traces
+any arch the engine serves, such as phase 11's deepseek-moe-16b or phase
+12's falcon-mamba-7b and zamba2-7b, at full width and depth, float32,
+weights from a generator seeded 2009), fills all 8 slots of an ``Engine``
+(max_len 512) with the first 8 of phase 10's prompts, and traces
 ``--ticks`` engine ticks (all slots decoding, none refilled) with
 ``torch.profiler`` (CPU and CUDA activities), then one 256-token prefill.
 Prints, with the card's name and power limit: the host-clock time per
@@ -29,7 +30,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.registry import init_model  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
@@ -40,9 +41,7 @@ def breakdown(prof, calls, tag, what, wall_ms):
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                "cuLaunchKernel", "cuLaunchKernelEx"))
+    launches = cs.launch_count(prof)
     busy = device_us / 1e3 / calls
     print(f"[{tag}] {what}: {wall_ms:.3f} ms per call on the host clock; "
           f"device busy {busy:.3f} ms per call; idle share "
@@ -67,7 +66,9 @@ def breakdown(prof, calls, tag, what, wall_ms):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=8)
-    ap.add_argument("--arch", default=cs.SERVE_ARCH)
+    ap.add_argument("--arch", default=cs.SERVE_ARCH,
+                    choices=[a for a in ARCHS
+                             if get_config(a).family in lm.FAMILIES])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device", file=sys.stderr)
