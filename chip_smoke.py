@@ -101,7 +101,25 @@ just before and read just after:
   8 streams of 1,500 stub frames, the encoder and the cross K/V, then 128
   greedy decode steps (self cache 448) against each step's bound; stream 0
   against the host CPU: ``enc_out`` and the first logits within 1e-3 x
-  max, greedy tokens up to a near tie.
+  max, greedy tokens up to a near tie;
+- training (phase 13): ``launch/train.py --smoke --steps 8`` for the eight
+  archs its data feeds (``plan_pipeline`` through the superstep kernel,
+  its plan equal to the plain version's; finite losses, no failure), one
+  of them again with a ``RuntimeError`` injected after its first
+  checkpoint (exactly one failure and one restore, and the run finishes),
+  and two ``build_train_step`` steps each for internvl2-2b and
+  whisper-medium on ``make_batch``; (c) llama3.2-1b cut to 2 layers at
+  full width in float32, 2 x 512 tokens, card against the host CPU: loss
+  within 1e-4 x |loss|, each gradient leaf within 1e-3 x max |CPU leaf|,
+  one ``apply_updates`` within 1e-5 x max; then llama3.2-1b at published
+  width and depth (1,235,814,400 parameters, bfloat16 compute, float32
+  masters) for 6 steps of 16 x 4,096 tokens in 16 microbatches through
+  ``Trainer`` over ``Prefetcher(SyntheticLM)``, each step against its
+  FLOP bound at 989 TFLOP/s (``train_flops``), its final 14.8 GB
+  checkpoint (under ``build/``, deleted after) restored onto the card
+  bitwise, and (d) ``compress_all_reduce`` at world size 1 on the trained
+  model's gradients of one sequence (error state == g32 - deq exactly,
+  |deq - g32| <= scale).
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -116,6 +134,7 @@ import ctypes
 import gc
 import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -2134,6 +2153,349 @@ def whisper_phase(tag, *, device="cuda", smoke=False,
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training — the launcher, llama3.2-1b at full width and depth,
+# a cut against the host CPU, and the int8 error-feedback compression
+# ---------------------------------------------------------------------------
+
+# the archs the reference's launcher trains; internvl2-2b and whisper-medium
+# fail there (SyntheticLM has no patch_embeds / frames; ROADMAP Queue 3) and
+# take one step on make_batch instead, as tests/test_models_smoke.py does
+TRAIN_ARCHS = ("qwen2-0.5b", "llama3.2-1b", "qwen2.5-14b", "stablelm-3b",
+               "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
+               "zamba2-7b")
+TRAIN_STEP_ARCHS = ("internvl2-2b", "whisper-medium")
+TRAIN_ARCH = "llama3.2-1b"  # the model launch/train.py's docstring trains
+TRAIN_PARAMS = 1_235_814_400
+# published train_4k: 4,096 tokens x 256 sequences; reduced: batch 256 -> 16,
+# one sequence per microbatch
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACC, TRAIN_STEPS = 4096, 16, 16, 6
+FAIL_ARCH, FAIL_STEPS, FAIL_AT = "llama3.2-1b", 12, 11  # after the step-10 checkpoint
+CUT_LAYERS, CUT_BATCH, CUT_SEQ = 2, 2, 512  # check (c), float32
+CUT_LOSS_TOL, CUT_GRAD_TOL, CUT_UPDATE_TOL = 1e-4, 1e-3, 1e-5
+BF16_PEAK = 989e12  # dense bf16 FLOP/s, H100 SXM at 700 W (NVIDIA data sheet)
+
+
+def train_dir(root, name):
+    d = root / "build" / "chip_smoke_train" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def faults(trainer):
+    """A trainer's failure and restore events as (kind, step); straggler
+    events, which host noise can raise, are left out."""
+    return [(e["kind"], e["step"]) for e in trainer.events
+            if e["kind"] in ("failure", "restore")]
+
+
+def train_launcher_phase(tk, tag, root, *, device="cuda"):
+    """``launch/train.py --smoke --steps 8`` for every arch the reference's
+    launcher trains: the placement line through the superstep kernel equal
+    to the plain version's plan, finite losses, no failure; then one run
+    with a ``RuntimeError`` injected after its first checkpoint, which must
+    fail once, restore once and finish.  Returns the launches per arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import placement as pl
+    from repro_torch.launch import train
+    from repro_torch.models.config import ShapeConfig
+
+    shape = ShapeConfig("train", "train", seq_len=64, global_batch=4)
+    impl = "cuda" if torch.device(device).type == "cuda" else "plain"
+
+    def launch(arch, steps, inject=None):
+        d = train_dir(root, arch)
+        out = io.StringIO()
+        tk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            tr = train.main(["--arch", arch, "--smoke", "--steps", str(steps),
+                             "--device", device, "--ckpt-dir", str(d)],
+                            inject_failure=inject)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = tk.LAUNCHES
+        shutil.rmtree(d, ignore_errors=True)
+        cfg = get_config(arch, smoke=True)
+        plans = [pl.plan_pipeline(cfg, shape, pl.PodTopology(pods=1),
+                                  steps_per_sec=0.1, device=device,
+                                  kernel_impl=k) for k in (impl, "plain")]
+        assert plan_key(plans[0]) == plan_key(plans[1]), (arch, plans)
+        lines = out.getvalue().splitlines()
+        assert lines[0] == (f"[placement] stages->slices "
+                            f"{plans[1].stage_slices} "
+                            f"(lat {plans[1].latency_us:.1f}us)"), lines
+        losses = [m["loss"] for m in tr.metrics_log]
+        assert losses and np.isfinite(losses).all(), (arch, losses)
+        if impl == "cuda":
+            assert launches > 0, f"launch/train.py --arch {arch}: no superstep"
+        return tr, lines, launches, wall
+
+    launches = {}
+    for arch in TRAIN_ARCHS:
+        tr, lines, launches[arch], wall = launch(arch, 8)
+        assert tr.restarts == 0 and not faults(tr), (arch, tr.events)
+        assert lines[-1].startswith(f"{arch}: 8 steps, loss "), lines
+        print(f"[{tag}] launch/train.py --arch {arch} --smoke --steps 8: "
+              f"{lines}; {launches[arch]} superstep launches (plan == "
+              f"kernel_impl='plain'); step p50 "
+              f"{1e3 * np.median([m['step_time_s'] for m in tr.metrics_log]):.2f}"
+              f" ms; wall {wall:.2f} s")
+    fired = []
+
+    def boom(step):
+        if step == FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected failure after the first checkpoint")
+
+    tr, lines, n, wall = launch(FAIL_ARCH, FAIL_STEPS, boom)
+    kinds = faults(tr)
+    assert kinds == [("failure", FAIL_AT), ("restore", 10)], kinds
+    assert tr.restarts == 1 and fired == [FAIL_AT]
+    assert lines[-1].startswith(f"{FAIL_ARCH}: {len(tr.metrics_log)} steps")
+    print(f"[{tag}] launch/train.py --arch {FAIL_ARCH} --steps {FAIL_STEPS} "
+          f"with a RuntimeError injected at step {FAIL_AT}: events {kinds}, "
+          f"restarts {tr.restarts}, {len(tr.metrics_log)} steps logged; "
+          f"{lines[-1]}; wall {wall:.2f} s")
+    return launches
+
+
+def train_step_phase(tag, *, device="cuda"):
+    """One ``build_train_step`` step of the archs the launcher cannot
+    train, on ``make_batch``'s inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.registry import make_batch
+    from repro_torch.optim.adamw import OptConfig
+
+    shape = ShapeConfig("smoke", "train", seq_len=32, global_batch=2)
+    for arch in TRAIN_STEP_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        built = build_train_step(cfg, shape, make_local_mesh(1, 1, device=device),
+                                 OptConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=10))
+        state = init_train_state(cfg, built)
+        losses = []
+        for seed in (0, 1):
+            state, m = built.fn(state, make_batch(cfg, shape, seed=seed,
+                                                  device=device))
+            losses.append(float(m["loss"]))
+        assert np.isfinite(losses).all() and int(state.step) == 2, losses
+        print(f"[{tag}] {arch}: 2 build_train_step steps on make_batch, "
+              f"losses {losses}")
+
+
+def train_flops(cfg, n_params, seq, batch):
+    """FLOPs of one step, stated: the forward's matrix products (2 per
+    weight per token; the embedding table counts once, as the tied head),
+    the causal attention's QK^T and PV over the seq (seq + 1) / 2 pairs a
+    sequence needs, the backward at twice the forward, and the forward of
+    the blocks again (remat; the head is not recomputed)."""
+    tokens = seq * batch
+    head = cfg.vocab * cfg.d_model
+    blocks = n_params - head - cfg.d_model  # the final norm computes no product
+    attn = (cfg.n_layers * batch * 2 * 2 * (seq * (seq + 1) // 2)
+            * cfg.n_heads * cfg.hd())
+    fwd = 2 * (blocks + head) * tokens + attn
+    return 3 * fwd + 2 * blocks * tokens + attn
+
+
+def llama_train_phase(tag, root, *, device="cuda", smoke=False,
+                      steps=TRAIN_STEPS):
+    """llama3.2-1b at published width and depth (bfloat16 compute,
+    float32 masters) on 16 x 4,096-token batches in 16 microbatches,
+    through ``Trainer`` over ``Prefetcher(SyntheticLM)`` as
+    ``launch/train.py`` wires them; then its final checkpoint restored
+    onto the card bitwise, and check (d), the compression at world size 1
+    on the trained model's gradients of one 4,096-token sequence.
+    Returns its numbers."""
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH, smoke=smoke)
+    seq, batch, n_acc = (64, 4, 2) if smoke else (TRAIN_SEQ, TRAIN_BATCH,
+                                                  TRAIN_ACC)
+    shape = ShapeConfig("train_4k", "train", seq_len=seq, global_batch=batch)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    built = build_train_step(cfg, shape, make_local_mesh(1, 1, device=device),
+                             OptConfig(lr=1e-3, warmup_steps=5,
+                                       total_steps=100),
+                             n_acc=n_acc, masked=True)
+    state = init_train_state(cfg, built, seed=SEED)
+    n_params = sum(t.numel() for t in state.params.values())
+    if not smoke:
+        assert cfg.dtype == "bfloat16" and n_params == TRAIN_PARAMS, n_params
+    data = Prefetcher(iter(SyntheticLM(cfg.vocab, seq, batch, seed=0)))
+    d = train_dir(root, "llama_full")
+    tr = Trainer(TrainerConfig(ckpt_dir=str(d), ckpt_every=10**9,
+                               async_ckpt=False),
+                 state, built.fn, data, state_shardings=built.in_shardings[0])
+    save_s = []
+    orig_save = ckpt_mod.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    ckpt_mod.save = timed_save
+    t0 = time.perf_counter()
+    try:
+        tr.run(steps)
+    finally:
+        ckpt_mod.save = orig_save
+    wall = time.perf_counter() - t0
+    log = tr.metrics_log
+    assert len(log) == steps and tr.restarts == 0 and not faults(tr), \
+        tr.events
+    for m in log:
+        assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), m
+        print(f"[{tag}] {TRAIN_ARCH} step {m['step']}: loss {m['loss']:.6f} "
+              f"grad_norm {m['grad_norm']:.6f} lr {m['lr']:.3e} step time "
+              f"{m['step_time_s']:.3f} s")
+    times = [m["step_time_s"] for m in log]
+    p50 = float(np.median(times))
+    tokens = seq * batch
+    flops = train_flops(cfg, n_params, seq, batch)
+    bound_s = flops / BF16_PEAK
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    # the final checkpoint, restored onto the device bitwise
+    t0 = time.perf_counter()
+    restored, step = ckpt_mod.restore(str(d), tr.state,
+                                      sharding_tree=built.in_shardings[0])
+    restore_s = time.perf_counter() - t0
+    assert step == steps and int(restored.step) == steps
+    n_leaves = 1
+    for field in ("params", "m", "v"):
+        got, want = getattr(restored, field), getattr(tr.state, field)
+        assert list(got) == list(want)
+        for k, t in want.items():
+            assert got[k].device == t.device and torch.equal(got[k], t), \
+                (field, k)
+            n_leaves += 1
+    ckpt_bytes = sum(f.stat().st_size for f in (d / f"step_{step:08d}").iterdir())
+    del restored
+    shutil.rmtree(d, ignore_errors=True)
+
+    # check (d): the int8 error-feedback compression at world size 1, on
+    # the trained model's gradients of one sequence of the next batch
+    one = build_train_step(cfg, ShapeConfig("train_4k", "train", seq_len=seq,
+                                            global_batch=1),
+                           make_local_mesh(1, 1, device=device), n_acc=1,
+                           masked=True)
+    loss, grads = one.meta["loss_and_grads"](
+        tr.state, {k: v[:1] for k, v in next(data).items()})
+    del one
+    err = compress.init_error_state(grads)
+    out, new_err = compress.compress_all_reduce(
+        grads, err, torch.Generator(device=device).manual_seed(SEED))
+    worst = 0.0
+    for k, g in grads.items():
+        g32 = g + err[k]
+        scale = torch.clamp_min(g32.abs().max(), 1e-12) * (1.0 / 127.0)
+        assert torch.equal(new_err[k], g32 - out[k]), k
+        over = float(((out[k] - g32).abs() - scale).max())
+        assert over <= 0, (k, over)
+        worst = max(worst, float(((out[k] - g32).abs() / scale).max()))
+    del grads, err, out, new_err
+    stats = dict(
+        arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype, seq=seq,
+        batch=batch, n_acc=n_acc, steps=steps,
+        losses=[m["loss"] for m in log],
+        grad_norms=[m["grad_norm"] for m in log],
+        step_s=times, step_p50_s=p50, tokens_per_s=tokens / p50,
+        step_flops=flops, bound_s=bound_s, bound_share=bound_s / p50,
+        peak_device_bytes=peak, ckpt_save_s=save_s[-1],
+        ckpt_restore_s=restore_s, ckpt_bytes=ckpt_bytes,
+        ckpt_leaves=n_leaves, wall_s=wall,
+        compress_max_err_over_scale=worst, compress_loss=float(loss))
+    print(f"[{tag}] {TRAIN_ARCH} training ({n_params} parameters, "
+          f"{cfg.dtype} compute, float32 masters; {batch} x {seq} tokens, "
+          f"{n_acc} microbatches, remat): step p50 {p50:.3f} s, "
+          f"{tokens / p50:.1f} tokens/s; bound {bound_s:.3f} s "
+          f"({flops:.4e} FLOPs: 3 x forward + the blocks' recompute, over "
+          f"{BF16_PEAK:.3e} bf16 FLOP/s), share {bound_s / p50:.4f}; peak "
+          f"device memory {peak}; checkpoint {ckpt_bytes} bytes in "
+          f"{n_leaves} leaves saved in {save_s[-1]:.2f} s, restored "
+          f"bitwise in {restore_s:.2f} s; compression at world size 1: "
+          f"error state == g32 - deq exactly, |deq - g32| <= scale (max "
+          f"{worst:.4f} of a scale step); wall {wall:.2f} s")
+    return stats
+
+
+def train_host_phase(tag, *, device="cuda", smoke=False):
+    """Check (c): llama3.2-1b cut to 2 layers at full width in float32, 2 x
+    512 tokens: loss and gradients on the card against the host CPU from
+    the same weights and batch, then one ``apply_updates`` of the CPU's
+    gradients on each."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import OptConfig, TrainState, apply_updates
+
+    cfg = get_config(TRAIN_ARCH, smoke=smoke).with_(n_layers=CUT_LAYERS,
+                                                    dtype="float32")
+    seq, batch = (32, 2) if smoke else (CUT_SEQ, CUT_BATCH)
+    shape = ShapeConfig("cut", "train", seq_len=seq, global_batch=batch)
+    opt = OptConfig(lr=1e-3, warmup_steps=5, total_steps=100)
+    t0 = time.perf_counter()
+    built = {dev: build_train_step(cfg, shape, make_local_mesh(1, 1, device=dev),
+                                   opt, masked=True)
+             for dev in ("cpu", device)}
+    card_state = init_train_state(cfg, built[device], seed=SEED)
+
+    def on(dev, tree):
+        return {k: t.to(dev, copy=True) for k, t in tree.items()}
+
+    host = TrainState(card_state.step.cpu(), on("cpu", card_state.params),
+                      on("cpu", card_state.m), on("cpu", card_state.v))
+    b = SyntheticLM(cfg.vocab, seq, batch, seed=1).next_batch()
+    l_h, g_h = built["cpu"].meta["loss_and_grads"](host, b)
+    l_d, g_d = built[device].meta["loss_and_grads"](card_state, b)
+    loss_err = abs(float(l_d) - float(l_h)) / abs(float(l_h))
+    assert loss_err <= CUT_LOSS_TOL, (float(l_d), float(l_h))
+
+    def worst(got, want):
+        out = 0.0
+        for k, w in want.items():
+            scale = max(float(w.abs().max()), 1e-30)
+            err = float((got[k].cpu() - w).abs().max()) / scale
+            out = max(out, err)
+        return out
+
+    grad_err = worst(g_d, g_h)
+    assert grad_err <= CUT_GRAD_TOL, grad_err
+    host, _ = apply_updates(opt, host, g_h)
+    card_state, _ = apply_updates(opt, card_state, on(device, g_h))
+    upd_err = max(worst(getattr(card_state, f), getattr(host, f))
+                  for f in ("params", "m", "v"))
+    assert upd_err <= CUT_UPDATE_TOL, upd_err
+    n = sum(t.numel() for t in host.params.values())
+    print(f"[{tag}] {TRAIN_ARCH} cut to {CUT_LAYERS} layers at full width "
+          f"({n} parameters, float32), {batch} x {seq} tokens, card vs host "
+          f"CPU: loss {float(l_d):.6f} vs {float(l_h):.6f} (rel err "
+          f"{loss_err:.3e}, limit {CUT_LOSS_TOL}); gradients max err "
+          f"{grad_err:.3e} x max |CPU leaf| (limit {CUT_GRAD_TOL}); one "
+          f"apply_updates max err {upd_err:.3e} x max (limit "
+          f"{CUT_UPDATE_TOL}); wall {time.perf_counter() - t0:.2f} s")
+    return dict(loss_rel_err=loss_err, grad_err=grad_err, update_err=upd_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2376,6 +2738,20 @@ def main() -> int:
     print(f"[{tag}] phase 12 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")
 
+    # -- phase 13: training -------------------------------------------------
+    free_device()
+    t0 = time.perf_counter()
+    train_launches = train_launcher_phase(tk, tag, root)
+    train_step_phase(tag)
+    free_device()
+    training = {"host_cut": train_host_phase(tag)}
+    free_device()
+    training["full"] = llama_train_phase(tag, root)
+    free_device()
+    print(f"[{tag}] training: {json.dumps(training)}")
+    print(f"[{tag}] phase 13 wall {time.perf_counter() - t0:.2f} s; script "
+          f"wall so far {time.perf_counter() - t_script:.2f} s")
+
     print(json.dumps({"kernels": [{
         "name": "batched_superstep",
         "route": "cuda",
@@ -2395,6 +2771,7 @@ def main() -> int:
             **{f"trace_{label}": r["launches"] for label, r in trace.items()},
             "placement": placement_launches,
             **{f"serve_launcher_{a}": n for a, n in launcher_launches.items()},
+            **{f"train_launcher_{a}": n for a, n in train_launches.items()},
         },
         "region_local": {B: {k: t[k] for k in (
             "n", "K", "launches", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -3,7 +3,8 @@
 Port of ``repro/models/attention.py``, in plain PyTorch.  Prefill never
 materializes the full (S, S) score matrix: an online softmax runs over KV
 chunks, one query chunk at a time, with the reference's arithmetic and its
-chunk sizes (``_chunked_attention``).  Decode computes one-step attention
+chunk sizes (``_chunked_attention``), and keeps no per-chunk scores for the
+backward pass.  Decode computes one-step attention
 against the cache.
 
 Cache writes keep the reference's rules for positions out of range: a
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import apply_rope, dtype_of, einsum, matmul
+from .common import apply_rope, dtype_of, einsum, matmul, recompute
 
 NEG_INF = -1e30
 
@@ -141,11 +142,67 @@ def _chunk_count(n: int, chunk: int) -> int:
     return count
 
 
+def _kv_step(qc, q_pos, kc, vc, ki, kv_chunk, causal, m, l, acc):
+    """One KV chunk of the online softmax: (m, l, acc) updated by the
+    scores of ``qc`` against ``kc``."""
+    s = einsum("bqkgh,bskh->bkgqs", qc, kc).to(torch.float32)
+    if causal:
+        kv_pos = ki * kv_chunk + torch.arange(kv_chunk, device=qc.device)
+        mask = q_pos[:, None] >= kv_pos[None, :]
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    pexp = torch.exp(s - m_new[..., None])
+    l = l * alpha + pexp.sum(-1)
+    acc = acc * alpha[..., None] + einsum(
+        "bkgqs,bskh->bkgqh", pexp.to(vc.dtype), vc
+    ).to(torch.float32)
+    return m_new, l, acc
+
+
+def live_kv_chunks(qi, q_chunk, kv_chunk, nkc, causal) -> int:
+    """How many leading KV chunks query chunk ``qi`` attends to: all of
+    them, or under the causal mask those that start at or before its last
+    query.  A chunk past that is masked whole: its scores are ``NEG_INF``
+    after a chunk with a live key (chunk 0 always has one), so it leaves
+    ``m`` and ``l`` as they were (``alpha`` = exp(0) = 1, ``pexp`` = 0) and
+    adds exact zeros to ``acc``; skipping it changes no value and no
+    gradient."""
+    if not causal:
+        return nkc
+    return min(nkc, (qi * q_chunk + q_chunk - 1) // kv_chunk + 1)
+
+
+def _per_q_chunk(qc, k_ch, v_ch, qi, causal):
+    """One query chunk against every KV chunk -> (B, qch, nkv, g, hd)."""
+    B, q_chunk, nkv, g, hd = qc.shape
+    kv_chunk = k_ch.shape[2]
+    dev = qc.device
+    q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+    m = torch.full((B, nkv, g, q_chunk), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nkv, g, q_chunk), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nkv, g, q_chunk, hd), dtype=torch.float32,
+                      device=dev)
+    for ki in range(live_kv_chunks(qi, q_chunk, kv_chunk, k_ch.shape[1],
+                                   causal)):
+        m, l, acc = recompute(_kv_step, qc, q_pos, k_ch[:, ki], v_ch[:, ki],
+                              ki, kv_chunk, causal, m, l, acc)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)
+
+
 def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     """Online-softmax attention. q: (B,Sq,nq,hd), k/v: (B,Skv,nkv,hd).
 
     GQA handled by reshaping q to (B, Sq, nkv, g, hd).  Runs KV chunks with
-    running (max, denom, acc), one q chunk at a time.
+    running (max, denom, acc), one q chunk at a time, and under the causal
+    mask only the chunks it does not mask whole (``live_kv_chunks``: the
+    values are the reference's, which computes those too).  While autograd
+    records, each q chunk and each KV step inside it is checkpointed, as
+    the reference checkpoints ``per_q_chunk`` and ``kv_step``: the
+    backward pass recomputes every (q, kv) chunk pair's scores instead of
+    keeping them.
     """
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
@@ -161,34 +218,8 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     q_ch = q.reshape(B, nqc, q_chunk, nkv, g, hd)
     k_ch = k.reshape(B, nkc, kv_chunk, nkv, hd)
     v_ch = v.reshape(B, nkc, kv_chunk, nkv, hd)
-    dev = q.device
-
-    outs = []
-    for qi in range(nqc):
-        qc = q_ch[:, qi]  # (B, qch, nkv, g, hd)
-        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((B, nkv, g, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, nkv, g, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, nkv, g, q_chunk, hd), dtype=torch.float32,
-                          device=dev)
-        for ki in range(nkc):
-            kc, vc = k_ch[:, ki], v_ch[:, ki]  # (B, kvch, nkv, hd)
-            s = einsum("bqkgh,bskh->bkgqs", qc, kc).to(torch.float32)
-            if causal:
-                kv_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
-                mask = q_pos[:, None] >= kv_pos[None, :]
-                s = torch.where(mask[None, None, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            pexp = torch.exp(s - m_new[..., None])
-            l = l * alpha + pexp.sum(-1)
-            acc = acc * alpha[..., None] + einsum(
-                "bkgqs,bskh->bkgqh", pexp.to(vc.dtype), vc
-            ).to(torch.float32)
-            m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qch, nkv, g, hd)
+    outs = [recompute(_per_q_chunk, q_ch[:, qi], k_ch, v_ch, qi, causal)
+            for qi in range(nqc)]
     out = torch.cat(outs, dim=1).reshape(B, Sq, nq, hd)
     return out.to(v.dtype)
 

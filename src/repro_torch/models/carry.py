@@ -13,7 +13,13 @@ Both sides cross as numpy arrays, so nothing here imports the JAX package:
 
 - :func:`params_from_reference` builds the port's model from the
   reference's parameter pytree (``jax.tree.map(np.asarray, params)``);
-- :func:`params_to_numpy` is its inverse.
+- :func:`params_to_numpy` is its inverse;
+- :func:`named_from_reference` gives any tree of that layout (moments,
+  gradients) as tensors under the port's names;
+- :func:`state_from_reference` and :func:`state_to_numpy` do the same for
+  a train state (step, float32 master, m and v; ``optim/adamw.py``);
+- :func:`reference_order` sorts the port's names as the reference's
+  pytree orders its leaves.
 
 A model of either package carried from the same arrays computes the same
 function, up to the rounding of each package's kernels.
@@ -25,8 +31,7 @@ import torch
 
 from ..core.problem import resolve_device
 from .config import ModelConfig
-from .encdec import EncDec
-from .transformer import LM
+from .registry import empty_model
 
 # the reference's layer-stacked subtrees
 STACKED = ("dense_blocks", "blocks", "enc_blocks", "dec_blocks")
@@ -47,6 +52,18 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _unstacked(tree: dict):
+    """(the port's name, torch tensor) for every layer of every leaf of
+    the reference's ``tree``."""
+    for path, arr in _leaves(tree):
+        t = _to_torch(arr)
+        if path[0] in STACKED:
+            for i, part in enumerate(t):
+                yield ".".join((path[0], str(i)) + path[1:]), part
+        else:
+            yield ".".join(path), t
+
+
 def params_from_reference(cfg: ModelConfig, tree: dict, *, device=None):
     """The port's model (an ``EncDec`` for the enc-dec family, else an
     ``LM``) holding the reference's parameters ``tree`` (numpy arrays;
@@ -54,39 +71,42 @@ def params_from_reference(cfg: ModelConfig, tree: dict, *, device=None):
     port's parameter (``cfg.dtype``; the MoE router and the SSMs' ``A_log``
     and ``D`` float32), on ``device``."""
     dev = resolve_device(device)
-    model = (EncDec if cfg.family == "encdec" else LM)(cfg, device=dev)
+    model = empty_model(cfg, dev)
     params = dict(model.named_parameters())
-    filled = set()
     with torch.no_grad():
-        for path, arr in _leaves(tree):
-            t = _to_torch(arr)
-            if path[0] in STACKED:
-                names = [".".join((path[0], str(i)) + path[1:])
-                         for i in range(t.shape[0])]
-                parts = list(t)
-            else:
-                names, parts = [".".join(path)], [t]
-            for name, part in zip(names, parts):
-                if name not in params:
-                    raise KeyError(f"the port's model has no {name}")
-                p = params[name]
-                if tuple(part.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: {tuple(part.shape)} into "
-                                     f"{tuple(p.shape)}")
-                p.copy_(part)
-                filled.add(name)
-    missing = sorted(set(params) - filled)
+        for name, part in _named_like(params, _unstacked(tree)).items():
+            params[name].copy_(part)
+    return model
+
+
+def _named_like(params: dict, items) -> dict:
+    """``items`` (name, tensor) as a dict, checked against ``params``'
+    names and shapes."""
+    out = {}
+    for name, part in items:
+        if name not in params:
+            raise KeyError(f"the port's model has no {name}")
+        p = params[name]
+        if tuple(part.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: {tuple(part.shape)} into "
+                             f"{tuple(p.shape)}")
+        out[name] = part
+    missing = sorted(set(params) - set(out))
     if missing:
         raise KeyError(f"the reference's tree lacks {missing}")
-    return model
+    return out
 
 
 def params_to_numpy(model) -> dict:
     """The reference's pytree layout (layers stacked) as float32 numpy
     arrays; a bfloat16 model's values widen exactly."""
+    return _tree_from_named(model.named_parameters())
+
+
+def _tree_from_named(items) -> dict:
     tree: dict = {}
     stacked: dict[tuple, list] = {}
-    for name, p in model.named_parameters():
+    for name, p in items:
         a = p.detach().to(device="cpu", dtype=torch.float32).numpy()
         parts = name.split(".")
         if parts[0] in STACKED:
@@ -102,3 +122,55 @@ def _put(tree, path, value):
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
+
+
+def reference_key(name: str):
+    """Sort key of the port's parameter ``name`` in the reference's leaf
+    order: JAX flattens a dict in sorted-key order, and a stacked leaf
+    (``blocks/attn/wq``) holds its layers in turn, so ``blocks.3.attn.wq``
+    sorts as (("blocks", "attn", "wq"), (3,))."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def reference_order(names) -> list:
+    """``names`` sorted by ``reference_key``."""
+    return sorted(names, key=reference_key)
+
+
+def named_from_reference(cfg: ModelConfig, tree: dict, *, device=None
+                         ) -> dict:
+    """A tree of the reference's parameter layout (parameters, moments or
+    gradients; numpy) as float32 tensors under the port's names, in the
+    reference's leaf order, on ``device``."""
+    dev = resolve_device(device)
+    got = _named_like(dict(empty_model(cfg, "meta").named_parameters()),
+                      _unstacked(tree))
+    return {k: got[k].to(device=dev, dtype=torch.float32)
+            for k in reference_order(got)}
+
+
+def state_from_reference(cfg: ModelConfig, ref_state, device=None):
+    """The port's ``TrainState`` from the reference's (``step``, ``params``,
+    ``m``, ``v``; numpy arrays, ``jax.tree.map(np.asarray, state)``):
+    float32 leaves under the port's names in the reference's leaf order,
+    on ``device``."""
+    from ..optim.adamw import TrainState
+
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(ref_state.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(step, *(named_from_reference(cfg, t, device=dev)
+                              for t in (ref_state.params, ref_state.m,
+                                        ref_state.v)))
+
+
+def state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` in the reference's layout: ``{"step",
+    "params", "m", "v"}``, each tree with its layers stacked, float32
+    numpy."""
+    out = {"step": np.asarray(int(state.step), np.int32)}
+    for field in ("params", "m", "v"):
+        out[field] = _tree_from_named(getattr(state, field).items())
+    return out

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -65,6 +66,15 @@ def draw_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             scale = DRAW_SCALES.get(leaf, p.shape[-2] ** -0.5)
             p.copy_(trunc_normal(generator, p.shape, scale, p.dtype))
     return module
+
+
+def recompute(fn, *args, remat: bool = True, **kw):
+    """``fn(*args, **kw)``, checkpointed when ``remat`` is set and autograd
+    records: the reference's ``jax.checkpoint``.  The values are the same
+    either way; only what the backward pass keeps differs."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 def softplus(x):

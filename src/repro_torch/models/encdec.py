@@ -11,7 +11,10 @@ output head is tied to ``embed``.  No attention here applies RoPE.
 Decode carries a self-attention cache (written in place) plus cross K/V,
 computed once from the encoder output by ``encdec_prefill``.  The
 reference's layer scans are Python loops over ``enc_blocks`` and
-``dec_blocks``; ``encdec_loss`` (training) is not ported yet.
+``dec_blocks``, each block checkpointed under ``remat`` while autograd
+records.  ``encdec_loss`` is the training loss; ``encode`` and
+``decode_train`` are differentiable, the serving calls run under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from torch import nn
 
 from .attention import Attention, init_cache
 from .common import (Norm, draw_weights, dtype_of, einsum, matmul,
-                     sinusoidal_positions)
+                     recompute, sinusoidal_positions, softmax_cross_entropy)
 from .config import ModelConfig
 from .mlp import MLP
 from .transformer import check_carry
@@ -38,6 +41,12 @@ class EncBlock(nn.Module):
         self.ln2 = Norm(cfg, dtype=dt, device=device)
         self.mlp = MLP(cfg, device=device)
 
+    def forward(self, x, positions, *, q_chunk, kv_chunk):
+        h, _ = self.attn(self.ln1(x), positions, causal=False,
+                         q_chunk=q_chunk, kv_chunk=kv_chunk, use_rope=False)
+        x = x + h
+        return x + self.mlp(self.ln2(x))
+
 
 class DecBlock(nn.Module):
     """``ln1``, ``self_attn``, ``ln2``, ``cross_attn``, ``ln3``, ``mlp``:
@@ -52,6 +61,17 @@ class DecBlock(nn.Module):
         self.cross_attn = Attention(cfg, device=device)
         self.ln3 = Norm(cfg, dtype=dt, device=device)
         self.mlp = MLP(cfg, device=device)
+
+    def forward(self, x, positions, enc_out, *, q_chunk, kv_chunk):
+        h, _ = self.self_attn(self.ln1(x), positions, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, use_rope=False)
+        y = x + h
+        # a float32 enc_out promotes a bfloat16 decoder's residual here
+        h, _ = self.cross_attn(self.ln2(y), positions, causal=False,
+                               xkv=enc_out, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk)
+        y = y + h
+        return y + self.mlp(self.ln3(y))
 
 
 class EncDec(nn.Module):
@@ -99,9 +119,8 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator, *,
     return draw_weights(EncDec(cfg, device=device), generator)
 
 
-@torch.no_grad()
 def encode(cfg: ModelConfig, model: EncDec, frames, *, q_chunk=512,
-           kv_chunk=1024):
+           kv_chunk=1024, remat=True):
     """frames: (B, S_enc, d) stubbed frame embeddings -> (B, S_enc, d)."""
     _check_model(cfg, model)
     B, S, d = frames.shape
@@ -110,16 +129,13 @@ def encode(cfg: ModelConfig, model: EncDec, frames, *, q_chunk=512,
     x = frames.to(dtype_of(cfg.dtype)) + pos
     positions = _positions(B, S, frames.device)
     for blk in model.enc_blocks:
-        h, _ = blk.attn(blk.ln1(x), positions, causal=False,
-                        q_chunk=q_chunk, kv_chunk=kv_chunk, use_rope=False)
-        x = x + h
-        x = x + blk.mlp(blk.ln2(x))
+        x = recompute(blk, x, positions, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                      remat=remat)
     return model.enc_norm(x)
 
 
-@torch.no_grad()
 def decode_train(cfg: ModelConfig, model: EncDec, tokens, enc_out, *,
-                 q_chunk=512, kv_chunk=1024):
+                 q_chunk=512, kv_chunk=1024, remat=True):
     """Teacher-forced decoder pass. tokens: (B, S_dec). Returns logits."""
     _check_model(cfg, model)
     B, S = tokens.shape
@@ -129,18 +145,21 @@ def decode_train(cfg: ModelConfig, model: EncDec, tokens, enc_out, *,
     x = model.embed[tokens.long()] + pos_table[:S]
     positions = _positions(B, S, x.device)
     for i, blk in enumerate(model.dec_blocks):
-        h, _ = blk.self_attn(blk.ln1(x), positions, q_chunk=q_chunk,
-                             kv_chunk=kv_chunk, use_rope=False)
-        y = x + h
-        # a float32 enc_out promotes a bfloat16 decoder's residual here
-        h, _ = blk.cross_attn(blk.ln2(y), positions, causal=False,
-                              xkv=enc_out, q_chunk=q_chunk,
-                              kv_chunk=kv_chunk)
-        y = y + h
-        y = y + blk.mlp(blk.ln3(y))
+        y = recompute(blk, x, positions, enc_out, q_chunk=q_chunk,
+                      kv_chunk=kv_chunk, remat=remat)
         check_carry(x, y, f"decoder layer {i}")
         x = y
     return model.head(model.dec_norm(x))
+
+
+def encdec_loss(cfg: ModelConfig, model: EncDec, batch: dict, **kw):
+    """Teacher-forced cross entropy of ``batch`` (``frames``, ``tokens``,
+    ``labels``, optional ``loss_mask``); ``kw`` goes to ``encode`` and
+    ``decode_train``."""
+    enc_out = encode(cfg, model, batch["frames"], **kw)
+    logits = decode_train(cfg, model, batch["tokens"], enc_out, **kw)
+    return softmax_cross_entropy(logits, batch["labels"],
+                                 batch.get("loss_mask"))
 
 
 # -- serving ------------------------------------------------------------------

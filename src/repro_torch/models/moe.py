@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dtype_of, einsum
+from .common import dtype_of, einsum, matmul
 from .mlp import MLP
 
 
@@ -73,7 +73,9 @@ def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
     token-major running count of its expert."""
     m = cfg.moe
     T, E = xt.shape[0], m.n_experts
-    logits = xt.to(torch.float32) @ router
+    # float32 in the model; the train step's compute copy may hand a
+    # bfloat16 router, which the product promotes as jnp's does
+    logits = matmul(xt.to(torch.float32), router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
                                      stable=True)

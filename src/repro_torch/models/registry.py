@@ -2,9 +2,9 @@
 
 Port of ``repro/models/registry.py``.  ``batch_shapes`` gives the shapes and
 torch dtypes of every model input of a shape cell; ``make_batch`` fills them
-from a seeded numpy generator, as the reference does, for smoke tests.  The
-reference's ``input_specs`` (abstract stand-ins for the dry-run) and
-``loss_fn`` (training) are not ported yet.
+from a seeded numpy generator, as the reference does, for smoke tests.  ``loss_fn``
+picks the family's training loss.  The reference's ``input_specs``
+(abstract stand-ins for the dry-run) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +20,14 @@ from .common import dtype_of
 from .config import ModelConfig, ShapeConfig
 
 
+def empty_model(cfg: ModelConfig, device):
+    """The model of ``cfg`` (an ``EncDec`` for the enc-dec family, else an
+    ``LM``) on ``device``, its weights allocated, not drawn."""
+    if cfg.family == "encdec":
+        return encdec_mod.EncDec(cfg, device=device)
+    return lm_mod.LM(cfg, device=device)
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator, *,
                device=None):
     """The model of ``cfg`` with weights drawn from ``generator``, on
@@ -29,6 +37,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *,
     if cfg.family == "encdec":
         return encdec_mod.init_encdec(cfg, generator, device=dev)
     return lm_mod.init_lm(cfg, generator, device=dev)
+
+
+def loss_fn(cfg: ModelConfig):
+    """The family's training loss, ``fn(cfg, model, batch, **kw)``."""
+    if cfg.family == "encdec":
+        return encdec_mod.encdec_loss
+    return lm_mod.lm_loss
 
 
 # -- shape-cell input construction -------------------------------------------

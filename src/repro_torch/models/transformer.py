@@ -17,7 +17,10 @@ of ``attn_every`` (and of the tail), with its own KV cache slice per call
 site (``hybrid_schedule``).
 
 The reference scans its layers under remat; the port runs them in a Python
-loop, eagerly.  The VLM's image frontend is a stub in both: precomputed
+loop, eagerly, and with ``remat`` (training, while autograd records)
+checkpoints each block with ``torch.utils.checkpoint``: a block keeps only
+its input and recomputes the rest in the backward pass.  ``lm_loss`` is
+the reference's training loss.  The VLM's image frontend is a stub in both: precomputed
 patch embeddings are prepended to the text tokens.  The enc-dec family is
 ``encdec.py``'s.
 """
@@ -28,7 +31,8 @@ from torch import nn
 
 from . import attention as attn_mod
 from . import ssm as ssm_mod
-from .common import Norm, draw_weights, dtype_of, matmul
+from .common import (Norm, draw_weights, dtype_of, matmul, recompute,
+                     softmax_cross_entropy)
 from .config import ModelConfig
 from .mlp import MLP
 from .moe import MoE
@@ -199,18 +203,20 @@ class LM(nn.Module):
             return hybrid_schedule(self.cfg)
         return (("ssm", i) for i in range(self.cfg.n_layers))
 
-    def _sequence(self, x, positions, *, q_chunk, kv_chunk, cache=None):
+    def _sequence(self, x, positions, *, q_chunk, kv_chunk, cache=None,
+                  remat=False):
         """Every layer over the whole sequence; with ``cache``, the
         attention layers write their k/v from position 0 and the SSM
-        layers their final states, cast to the cache's dtype.  Returns
+        layers their final states, cast to the cache's dtype.  With
+        ``remat`` each block is checkpointed (``recompute``).  Returns
         (x, the MoE layers' aux losses)."""
-        kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
+        kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, remat=remat)
         if self.cfg.family not in ("ssm", "hybrid"):
             auxs = []
             for i, blk in enumerate(self.layers()):
                 kv = None if cache is None else {
                     "k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
-                x, aux = blk(x, positions, cache=kv, **kw)
+                x, aux = recompute(blk, x, positions, cache=kv, **kw)
                 if aux is not None:
                     auxs.append(aux)
             return x, auxs
@@ -218,19 +224,20 @@ class LM(nn.Module):
             if kind == "attn":
                 kv = None if cache is None else {
                     "k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
-                x, _ = self.shared_attn(x, positions, cache=kv, **kw)
+                x, _ = recompute(self.shared_attn, x, positions, cache=kv,
+                                 **kw)
                 continue
-            x, st = self.blocks[i](x)
+            x, st = recompute(self.blocks[i], x, remat=remat)
             if cache is not None:
                 for name, t in st.items():
                     cache["ssm"][name][i].copy_(t)
         return x, []
 
     def forward(self, tokens, *, patch_embeds=None, q_chunk=512,
-                kv_chunk=1024, logits_mode="all"):
+                kv_chunk=1024, logits_mode="all", remat=False):
         x, positions = self._inputs(tokens, patch_embeds)
         x, auxs = self._sequence(x, positions, q_chunk=q_chunk,
-                                 kv_chunk=kv_chunk)
+                                 kv_chunk=kv_chunk, remat=remat)
         # the MoE layers' summed aux loss (the dense-first layers add none)
         aux = (torch.stack(auxs).sum() if auxs else
                torch.zeros((), dtype=torch.float32, device=x.device))
@@ -300,14 +307,30 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
 
 
 def lm_forward(cfg: ModelConfig, model: LM, tokens, *, patch_embeds=None,
-               q_chunk=512, kv_chunk=1024, logits_mode="all"):
+               q_chunk=512, kv_chunk=1024, logits_mode="all", remat=True):
     """tokens: (B, S) int.  VLM: patch_embeds (B, n_img, d) prepended.
 
     logits_mode: 'all' (training) | 'last' (prefill) | 'none' (returns hidden).
-    Returns (logits_or_hidden, aux_loss)."""
+    remat: checkpoint each block while autograd records (a no-op under
+    ``torch.no_grad()``).  Returns (logits_or_hidden, aux_loss)."""
     _check_model(cfg, model)
     return model(tokens, patch_embeds=patch_embeds, q_chunk=q_chunk,
-                 kv_chunk=kv_chunk, logits_mode=logits_mode)
+                 kv_chunk=kv_chunk, logits_mode=logits_mode, remat=remat)
+
+
+def lm_loss(cfg: ModelConfig, model: LM, batch: dict, **kw):
+    """Mean next-token cross entropy over ``batch`` (``tokens``,
+    ``labels``, optional ``loss_mask`` and, for the VLM,
+    ``patch_embeds``, whose positions are dropped from the logits), plus
+    the MoE layers' aux loss.  ``kw`` goes to ``lm_forward``."""
+    pe = batch.get("patch_embeds")
+    logits, aux = lm_forward(cfg, model, batch["tokens"], patch_embeds=pe,
+                             **kw)
+    n_img = 0 if pe is None else pe.shape[1]
+    if n_img:
+        logits = logits[:, n_img:]
+    return softmax_cross_entropy(logits, batch["labels"],
+                                 batch.get("loss_mask")) + aux
 
 
 # -- serving ------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""``chip_smoke.py``'s phase 12 rehearsed on the CPU at SMOKE size: the
-functions the card runs at full width (the SSM and hybrid engines under
-load with their checks (a) and (b), whisper's streams and its host check),
+"""``chip_smoke.py``'s phases 12 and 13 rehearsed on the CPU at SMOKE
+size: the functions the card runs at full width (the SSM and hybrid
+engines under load with their checks (a) and (b), whisper's streams and
+its host check; the training launcher with its injected failure, the
+card-vs-CPU cut, and llama3.2-1b's trainer, checkpoint and compression),
 with ``device="cpu"``, so that a fault in the script shows before a chip
 run.  Device metrics (launches per tick, peak memory) are None here."""
 import sys
@@ -40,3 +42,22 @@ def test_phase12_whisper_streams_and_host_check():
     assert stats["params"] == 203_008
     assert stats["greedy_steps"] == 10
     assert stats["enc_max_abs_err"] <= 1e-3 * stats["enc_max"]
+
+
+def test_phase13_launcher_and_failure_injection(tmp_path):
+    from repro_torch.kernels.minplus import batched as tk
+
+    launches = cs.train_launcher_phase(tk, "cpu", tmp_path, device="cpu")
+    assert sorted(launches) == sorted(cs.TRAIN_ARCHS)
+    assert set(launches.values()) == {0}  # the plain path launches nothing
+    cs.train_step_phase("cpu", device="cpu")
+
+
+def test_phase13_host_cut_and_llama_trainer(tmp_path):
+    cut = cs.train_host_phase("cpu", device="cpu", smoke=True)
+    assert cut == dict(loss_rel_err=0.0, grad_err=0.0, update_err=0.0)
+    stats = cs.llama_train_phase("cpu", tmp_path, device="cpu", smoke=True)
+    assert stats["steps"] == len(stats["losses"]) == cs.TRAIN_STEPS
+    assert stats["peak_device_bytes"] is None
+    assert stats["compress_max_err_over_scale"] <= 1.0
+    assert not (tmp_path / "build" / "chip_smoke_train" / "llama_full").exists()

@@ -14,7 +14,7 @@ import repro_torch.service as TS
 from repro_torch.configs import get_config
 from repro_torch.core import engine, leastcost
 from repro_torch.kernels.minplus import batched
-from repro_torch.launch import placement
+from repro_torch.launch import mesh, placement, train
 from repro_torch.models import SHAPES, init_model
 from repro_torch.serving import Engine
 
@@ -57,7 +57,19 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.models.encdec",
                                     "repro_torch.launch.placement",
                                     "repro_torch.launch.serve",
-                                    "repro_torch.serving"])
+                                    "repro_torch.serving",
+                                    "repro_torch.optim",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.optim.compress",
+                                    "repro_torch.data",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.ckpt",
+                                    "repro_torch.ckpt.checkpoint",
+                                    "repro_torch.runtime",
+                                    "repro_torch.runtime.trainer",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.mesh"])
 def test_service_obs_and_dag_import_without_jax(module):
     code = (
         "import sys, importlib\n"
@@ -112,6 +124,8 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         lambda: init_model(smoke, torch.Generator()),
         lambda: Engine(smoke, init_model(smoke, torch.Generator(),
                                          device="cpu")),
+        lambda: mesh.make_local_mesh(1, 1),
+        lambda: train.main(["--arch", "llama3.2-1b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
