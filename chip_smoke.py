@@ -113,13 +113,27 @@ just before and read just after:
   within 1e-4 x |loss|, each gradient leaf within 1e-3 x max |CPU leaf|,
   one ``apply_updates`` within 1e-5 x max; then llama3.2-1b at published
   width and depth (1,235,814,400 parameters, bfloat16 compute, float32
-  masters) for 6 steps of 16 x 4,096 tokens in 16 microbatches through
+  masters) for 3 steps of 8 x 4,096 tokens in 8 microbatches through
   ``Trainer`` over ``Prefetcher(SyntheticLM)``, each step against its
   FLOP bound at 989 TFLOP/s (``train_flops``), its final 14.8 GB
   checkpoint (under ``build/``, deleted after) restored onto the card
   bitwise, and (d) ``compress_all_reduce`` at world size 1 on the trained
   model's gradients of one sequence (error state == g32 - deq exactly,
-  |deq - g32| <= scale).
+  |deq - g32| <= scale);
+- the mesh path (phase 14), in an NCCL group of one rank on a free local
+  port, on ``make_local_mesh(1, 1)``, a DeviceMesh: (a) llama3.2-1b at
+  published width and depth (bfloat16 compute, float32 masters) for 2
+  steps of 4 x 4,096 tokens (train_4k's sequence, its batch 256 reduced to
+  4) in the published sequence-parallel mode with 2 microbatches through
+  the sharded ``build_train_step``, and the same 2 steps through the
+  one-device step from the same state and batches: losses and every
+  master, m and v leaf bitwise; (b) ``build_prefill_step`` over 2 x 32,768
+  tokens (prefill_32k, batch 32 reduced to 2) and 32 ``build_decode_step``
+  steps from position 32,000 over a 16 x 32,768-position bfloat16 cache
+  (decode_32k, batch 128 reduced to 16; 17.2 GB), each output and cache
+  bitwise equal to a direct ``lm_prefill`` / ``lm_decode_step``, the
+  decode step's p50/p95 against its bound; then a 2-layer float32 cut
+  through both builders, card against the host CPU, within 1e-3 x max.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2167,9 +2181,9 @@ TRAIN_ARCHS = ("qwen2-0.5b", "llama3.2-1b", "qwen2.5-14b", "stablelm-3b",
 TRAIN_STEP_ARCHS = ("internvl2-2b", "whisper-medium")
 TRAIN_ARCH = "llama3.2-1b"  # the model launch/train.py's docstring trains
 TRAIN_PARAMS = 1_235_814_400
-# published train_4k: 4,096 tokens x 256 sequences; reduced: batch 256 -> 16,
-# one sequence per microbatch
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACC, TRAIN_STEPS = 4096, 16, 16, 6
+# published train_4k: 4,096 tokens x 256 sequences; reduced: batch 256 -> 8,
+# one sequence per microbatch, 3 steps (the script's time limit)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACC, TRAIN_STEPS = 4096, 8, 8, 3
 FAIL_ARCH, FAIL_STEPS, FAIL_AT = "llama3.2-1b", 12, 11  # after the step-10 checkpoint
 CUT_LAYERS, CUT_BATCH, CUT_SEQ = 2, 2, 512  # check (c), float32
 CUT_LOSS_TOL, CUT_GRAD_TOL, CUT_UPDATE_TOL = 1e-4, 1e-3, 1e-5
@@ -2305,7 +2319,7 @@ def train_flops(cfg, n_params, seq, batch):
 def llama_train_phase(tag, root, *, device="cuda", smoke=False,
                       steps=TRAIN_STEPS):
     """llama3.2-1b at published width and depth (bfloat16 compute,
-    float32 masters) on 16 x 4,096-token batches in 16 microbatches,
+    float32 masters) on 8 x 4,096-token batches in 8 microbatches,
     through ``Trainer`` over ``Prefetcher(SyntheticLM)`` as
     ``launch/train.py`` wires them; then its final checkpoint restored
     onto the card bitwise, and check (d), the compression at world size 1
@@ -2494,6 +2508,312 @@ def train_host_phase(tag, *, device="cuda", smoke=False):
           f"apply_updates max err {upd_err:.3e} x max (limit "
           f"{CUT_UPDATE_TOL}); wall {time.perf_counter() - t0:.2f} s")
     return dict(loss_rel_err=loss_err, grad_err=grad_err, update_err=upd_err)
+
+
+# -- phase 14: the mesh path (DeviceMesh + DTensor) at world size 1 ---------
+
+# train_4k with the published TRAIN_MODE "seq" and TRAIN_ACC 2; reduced:
+# global batch 256 -> 4
+SHARD_SEQ, SHARD_BATCH, SHARD_STEPS = 4096, 4, 2
+SHARD_LEAF_TOL = 1e-5  # a leaf that is not bitwise, x max |one-device leaf|
+# prefill_32k, reduced: batch 32 -> 2; decode_32k, reduced: batch 128 -> 16
+PREFILL_SEQ, PREFILL_BATCH = 32768, 2
+DECODE_SEQ, DECODE_BATCH, DECODE_STEPS, DECODE_FROM = 32768, 16, 32, 32000
+SERVE_CUT_LAYERS, SERVE_CUT_SEQ, SERVE_CUT_TOL = 2, 512, 1e-3
+
+
+@contextlib.contextmanager
+def world_of_one(device):
+    """A process group of one rank on a free local port: NCCL on a card,
+    gloo on the CPU; destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def local_mesh(device):
+    """``make_local_mesh(1, 1)`` inside the group: a DeviceMesh."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(1, 1, device=device)
+    assert isinstance(mesh, DeviceMesh), type(mesh)
+    return mesh
+
+
+def whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def leaf_diffs(got: dict, want: dict):
+    """(leaves not bitwise equal, the worst |got - want| / max |want|)."""
+    differ, worst = [], 0.0
+    for k, w in want.items():
+        g = whole(got[k])
+        if not torch.equal(g, w):
+            differ.append(k)
+            scale = max(float(w.abs().max()), 1e-30)
+            worst = max(worst, float((g.float() - w.float()).abs().max())
+                        / scale)
+    return differ, worst
+
+
+def sharded_train_phase(tag, *, device="cuda", smoke=False):
+    """(a) llama3.2-1b at published width and depth (bfloat16 compute,
+    float32 masters), train_4k's sequence in the published sequence-
+    parallel mode with 2 microbatches, 2 steps through ``build_train_step``
+    on the DeviceMesh and the same 2 steps, from the same state and
+    batches, through the one-device path: losses and every master, m and v
+    leaf bitwise (a leaf that is not is named, within SHARD_LEAF_TOL)."""
+    from repro_torch.configs import get_config, train_accumulation, train_mode
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import (build_train_step, init_train_state,
+                                          shard_state)
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import OptConfig, TrainState
+
+    cfg = get_config(TRAIN_ARCH, smoke=smoke)
+    seq, batch = (64, 4) if smoke else (SHARD_SEQ, SHARD_BATCH)
+    mode, n_acc = train_mode(TRAIN_ARCH), train_accumulation(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", "train", seq_len=seq, global_batch=batch)
+    opt = OptConfig(lr=1e-3, warmup_steps=5, total_steps=100)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    one = build_train_step(cfg, shape, Mesh(dev), opt, n_acc=n_acc,
+                           masked=True, mode=mode)
+    state1 = init_train_state(cfg, one, seed=SEED)
+    data = SyntheticLM(cfg.vocab, seq, batch, seed=0)
+    batches = [data.next_batch() for _ in range(SHARD_STEPS)]
+    with world_of_one(device):
+        mesh = local_mesh(device)
+        built = build_train_step(cfg, shape, mesh, opt, n_acc=n_acc,
+                                 masked=True, mode=mode)
+        assert built.meta["n_acc"] == one.meta["n_acc"] == n_acc
+        state2 = shard_state(TrainState(state1.step.clone(), *(
+            {k: t.clone() for k, t in getattr(state1, f).items()}
+            for f in ("params", "m", "v"))), built.in_shardings[0])
+        times = {"one_device": [], "mesh": []}
+        losses = {"one_device": [], "mesh": []}
+        for b in batches:
+            for key, fn in (("one_device", one.fn), ("mesh", built.fn)):
+                sync(device)
+                t = time.perf_counter()
+                if key == "one_device":
+                    state1, m = fn(state1, b)
+                else:
+                    state2, m = fn(state2, b)
+                sync(device)
+                times[key].append(time.perf_counter() - t)
+                losses[key].append(float(m["loss"]))
+        differ, worst = [], 0.0
+        for f in ("params", "m", "v"):
+            d, w = leaf_diffs(getattr(state2, f), getattr(state1, f))
+            differ += [f"{f}/{k}" for k in d]
+            worst = max(worst, w)
+        step_equal = int(whole(state2.step)) == int(state1.step)
+        n_leaves = 3 * len(state1.params)
+        del state2, built
+    assert step_equal
+    assert losses["mesh"] == losses["one_device"], losses
+    assert worst <= SHARD_LEAF_TOL, (differ[:8], worst)
+    n_params = sum(t.numel() for t in state1.params.values())
+    del state1, one
+    out = dict(arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype, seq=seq,
+               batch=batch, n_acc=n_acc, mode=mode, losses=losses,
+               step_s=times, leaves=n_leaves, leaves_not_bitwise=differ,
+               worst_leaf_err=worst, wall_s=time.perf_counter() - t0)
+    print(f"[{tag}] phase 14 (a) {TRAIN_ARCH} ({n_params} parameters, "
+          f"{cfg.dtype} compute, mode {mode}, {batch} x {seq} tokens in "
+          f"{n_acc} microbatches) on make_local_mesh(1, 1), a DeviceMesh, "
+          f"against the one-device step: losses {losses['mesh']} == "
+          f"{losses['one_device']}; {n_leaves - len(differ)} of {n_leaves} "
+          f"state leaves bitwise (others {differ[:8]}, worst "
+          f"{worst:.3e} x max); step s mesh {times['mesh']} one-device "
+          f"{times['one_device']}; wall {out['wall_s']:.2f} s")
+    return out
+
+
+def decode_step_bound_ms(cfg, n_params, batch, pos):
+    """The least time of one bfloat16 decode step: the weights read once
+    (the tied table once, as the head) and each layer's k/v rows up to
+    ``pos`` read once, over the HBM rate."""
+    rows = cfg.n_layers * 2 * batch * (pos + 1) * cfg.n_kv_heads * cfg.hd()
+    return 1e3 * 2 * (n_params + rows) / HBM_BYTES_S
+
+
+def sharded_serve_phase(tag, *, device="cuda", smoke=False):
+    """(b) llama3.2-1b at published width and depth in bfloat16 through
+    ``build_prefill_step`` (prefill_32k's sequence) and
+    ``build_decode_step`` (a decode_32k cache, DECODE_STEPS steps from
+    DECODE_FROM) on the DeviceMesh, each output and the cache it leaves
+    bitwise equal to a direct ``lm_prefill`` / ``lm_decode_step`` on the
+    same weights and inputs as plain tensors; then a SERVE_CUT_LAYERS-layer
+    float32 cut through both builders, card against the host CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.registry import init_model
+
+    cfg = get_config(TRAIN_ARCH, smoke=smoke)
+    on_card = torch.device(device).type == "cuda"
+    if smoke:
+        pseq, pbatch, dseq, dbatch, dsteps, dfrom = 64, 2, 64, 4, 4, 40
+    else:
+        pseq, pbatch = PREFILL_SEQ, PREFILL_BATCH
+        dseq, dbatch, dsteps, dfrom = (DECODE_SEQ, DECODE_BATCH, DECODE_STEPS,
+                                       DECODE_FROM)
+    rng = np.random.default_rng(SEED)
+    t_phase = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=device).manual_seed(SEED),
+                       device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    out = dict(arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype)
+    with world_of_one(device):
+        mesh = local_mesh(device)
+        pre = steps.build_prefill_step(
+            cfg, ShapeConfig("prefill_32k", "prefill", pseq, pbatch), mesh)
+        dec = steps.build_decode_step(
+            cfg, ShapeConfig("decode_32k", "decode", dseq, dbatch), mesh)
+        sharded = lm.LM(cfg, device="meta")
+        sharded.load_state_dict(model.state_dict(), assign=True)
+        steps.shard_model(sharded, pre.in_shardings[0])
+
+        # prefill: the builder on DTensors against the direct call
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (pbatch, pseq)).astype(np.int32)).to(device)
+        cache = steps.init_cache(pre)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync(device)
+        t = time.perf_counter()
+        logits, cache = pre.fn(sharded, cache, {"tokens": tokens})
+        sync(device)
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t)
+        plain = lm.init_lm_cache(cfg, pbatch, pseq, torch.bfloat16
+                                 if cfg.dtype == "bfloat16" else torch.float32,
+                                 device=device)
+        sync(device)
+        t = time.perf_counter()
+        want, plain = lm.lm_prefill(cfg, model, tokens, plain)
+        sync(device)
+        out["prefill_direct_ms"] = 1e3 * (time.perf_counter() - t)
+        assert torch.equal(whole(logits), want), "prefill logits"
+        for name in ("k", "v"):
+            assert torch.equal(whole(cache["attn"][name]),
+                               plain["attn"][name]), f"prefill cache {name}"
+        del cache, plain, logits, want
+
+        # decode over a filled decode_32k cache
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        cache = steps.init_cache(dec)
+        plain = {}
+        for name, t_ in cache["attn"].items():
+            fill = torch.randn(t_.shape, generator=gen, device=device,
+                               dtype=t_.dtype).mul_(0.5)
+            t_.to_local().copy_(fill)  # one rank: its shard is the whole
+            plain[name] = fill
+        plain = {"attn": plain}
+        toks = [torch.from_numpy(rng.integers(
+            0, cfg.vocab, (dbatch, 1)).astype(np.int32)).to(device)
+            for _ in range(dsteps)]
+        step_ms, direct_ms = [], []
+        for i, tok in enumerate(toks):
+            pos = dfrom + i
+            sync(device)
+            t = time.perf_counter()
+            logits, cache = dec.fn(sharded, cache, tok, pos)
+            sync(device)
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            want, plain = lm.lm_decode_step(cfg, model, tok, plain, pos)
+            sync(device)
+            direct_ms.append(1e3 * (time.perf_counter() - t))
+            assert torch.equal(whole(logits), want), f"decode step {i}"
+        for name in ("k", "v"):
+            assert torch.equal(whole(cache["attn"][name]),
+                               plain["attn"][name]), f"decode cache {name}"
+        out["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                    if on_card else None)
+        del cache, plain, sharded
+    bound = decode_step_bound_ms(cfg, n_params, dbatch, dfrom + dsteps - 1)
+    out.update(prefill_tokens=pbatch * pseq, decode_batch=dbatch,
+               decode_cache=dseq, decode_from=dfrom, decode_steps=dsteps,
+               decode_ms_p50=float(np.percentile(step_ms, 50)),
+               decode_ms_p95=float(np.percentile(step_ms, 95)),
+               decode_direct_ms_p50=float(np.percentile(direct_ms, 50)),
+               decode_bound_ms=bound)
+    del model
+    print(f"[{tag}] phase 14 (b) {TRAIN_ARCH} ({n_params} parameters, "
+          f"{cfg.dtype}) builders on the DeviceMesh == direct calls, "
+          f"bitwise: prefill {pbatch} x {pseq} tokens {out['prefill_ms']:.1f}"
+          f" ms (direct {out['prefill_direct_ms']:.1f} ms); decode batch "
+          f"{dbatch} over a {dseq}-position cache, {dsteps} steps from "
+          f"{dfrom}: p50 {out['decode_ms_p50']:.3f} ms p95 "
+          f"{out['decode_ms_p95']:.3f} ms (direct p50 "
+          f"{out['decode_direct_ms_p50']:.3f} ms), bound {bound:.3f} ms "
+          f"(bf16 weights + the k/v rows read, over {HBM_BYTES_S:.3g} B/s); "
+          f"peak device memory {out['peak_device_bytes']}")
+
+    # the float32 cut at full width: both builders, card against the CPU
+    cut = cfg.with_(n_layers=SERVE_CUT_LAYERS, dtype="float32")
+    cseq = 32 if smoke else SERVE_CUT_SEQ
+    cmodel = init_model(cut, torch.Generator(device=device).manual_seed(SEED),
+                        device=device)
+    host = lm.LM(cut, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in cmodel.state_dict().items()})
+    ptoks = torch.from_numpy(rng.integers(0, cut.vocab, (2, cseq))
+                             .astype(np.int32))
+    dtoks = [torch.from_numpy(rng.integers(0, cut.vocab, (2, 1))
+                              .astype(np.int32)) for _ in range(4)]
+
+    def serve(model_, mesh_, dev):
+        p = steps.build_prefill_step(
+            cut, ShapeConfig("cut", "prefill", cseq, 2), mesh_)
+        d = steps.build_decode_step(
+            cut, ShapeConfig("cut", "decode", cseq, 2), mesh_)
+        steps.shard_model(model_, p.in_shardings[0])
+        c = steps.init_cache(p)
+        lg, c = p.fn(model_, c, {"tokens": ptoks.to(dev)})
+        res = [whole(lg).cpu()]
+        for i, tk in enumerate(dtoks):
+            lg, c = d.fn(model_, c, tk.to(dev), cseq - 4 + i)
+            res.append(whole(lg).cpu())
+        return res
+
+    with world_of_one(device):
+        got = serve(cmodel, local_mesh(device), device)
+    want = serve(host, Mesh(torch.device("cpu")), "cpu")
+    errs = []
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        errs.append(float((g - w).abs().max()) / scale)
+    assert max(errs) <= SERVE_CUT_TOL, errs
+    out["cut_errs"] = errs
+    out["wall_s"] = time.perf_counter() - t_phase
+    del cmodel, host
+    print(f"[{tag}] phase 14 (b) {TRAIN_ARCH} cut to {SERVE_CUT_LAYERS} "
+          f"layers in float32, prefill 2 x {cseq} then 4 decode steps through "
+          f"the builders, card vs host CPU: logits max err "
+          f"{max(errs):.3e} x max (limit {SERVE_CUT_TOL}); phase wall "
+          f"{out['wall_s']:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -2750,6 +3070,16 @@ def main() -> int:
     free_device()
     print(f"[{tag}] training: {json.dumps(training)}")
     print(f"[{tag}] phase 13 wall {time.perf_counter() - t0:.2f} s; script "
+          f"wall so far {time.perf_counter() - t_script:.2f} s")
+
+    # -- phase 14: the mesh path (DeviceMesh + DTensor) ----------------------
+    t0 = time.perf_counter()
+    mesh_path = {"train": sharded_train_phase(tag)}
+    free_device()
+    mesh_path["serve"] = sharded_serve_phase(tag)
+    free_device()
+    print(f"[{tag}] mesh path: {json.dumps(mesh_path)}")
+    print(f"[{tag}] phase 14 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")
 
     print(json.dumps({"kernels": [{

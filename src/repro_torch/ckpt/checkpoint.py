@@ -16,10 +16,14 @@ index): a train state's leaves are ``.step``, ``.params/embed``,
 ``.m/blocks.0.attn.wq`` and so on.  ``save`` copies every leaf to
 host memory before it returns, then writes from a thread if asked: the
 port's train step updates the state in place, so the copy must not wait
-for the thread.  ``restore`` loads into the structure of a template and,
-given a tree of ``torch.device``s of the same structure, puts each leaf
-on its device.  A DeviceMesh placement (the reference's elastic restore
-onto another mesh) is not ported yet.
+for the thread.  A tree of DTensors (a sharded train state) is gathered
+whole on every rank of its mesh (``full_tensor()``, a collective); the
+mesh's rank 0 writes it, and the other ranks wait until it has (the write
+is then never in a thread).  ``restore`` loads into the structure of a
+template and, given a tree of the same structure of ``torch.device``s or
+of ``dist.sharding.NamedSharding``s, puts each leaf on its device or
+lays it out on its mesh: the reference's elastic restore onto another
+mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +36,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..dist import sharding as shd
 
 Tree = Any
 
@@ -71,7 +78,10 @@ def _unflatten(template: Tree, leaves):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A host copy that later in-place updates of ``leaf`` do not reach."""
+    """A host copy that later in-place updates of ``leaf`` do not reach;
+    a DTensor whole (a collective over its mesh)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("numpy has no bfloat16: checkpoint a float32 "
@@ -81,8 +91,12 @@ def _to_host(leaf) -> np.ndarray:
 
 
 def save(directory: str, step: int, tree: Tree, *, blocking: bool = True):
-    """Atomic checkpoint write. Returns the thread when ``blocking=False``."""
+    """Atomic checkpoint write. Returns the thread when ``blocking=False``
+    (a tree of DTensors is written before this returns, by its mesh's rank
+    0 alone)."""
     flat = [("/".join(p), _to_host(x)) for p, x in _flatten(tree)]
+    mesh = next((x.device_mesh for _, x in _flatten(tree)
+                 if isinstance(x, DTensor)), None)
 
     def _write():
         final = os.path.join(directory, f"step_{step:08d}")
@@ -104,6 +118,11 @@ def save(directory: str, step: int, tree: Tree, *, blocking: bool = True):
             shutil.rmtree(final)
         os.rename(tmp, final)
 
+    if mesh is not None:
+        if shd.is_mesh_rank0(mesh):
+            _write()
+        shd.mesh_barrier(mesh)
+        return None
     if blocking:
         _write()
         return None
@@ -129,9 +148,11 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore(directory: str, template: Tree, *, step: Optional[int] = None,
             sharding_tree: Optional[Tree] = None) -> tuple[Tree, int]:
-    """Load into the structure of ``template``: CPU tensors, or each on its
-    device in ``sharding_tree`` (a tree of ``torch.device``s of the same
-    structure).  Returns (tree, step)."""
+    """Load into the structure of ``template``: CPU tensors, or each put on
+    its leaf of ``sharding_tree`` (a tree of the same structure of
+    ``torch.device``s or ``NamedSharding``s: DTensors on a ``DeviceMesh``,
+    which may differ from the mesh that saved the tree).  Returns (tree,
+    step)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -144,12 +165,12 @@ def restore(directory: str, template: Tree, *, step: Optional[int] = None,
         raise ValueError(
             f"checkpoint has {len(meta['leaves'])} leaves, template {n}"
         )
-    devices = (None if sharding_tree is None
-               else [d for _, d in _flatten(sharding_tree)])
+    where = (None if sharding_tree is None
+             else [d for _, d in _flatten(sharding_tree)])
     leaves = []
     for i, e in enumerate(meta["leaves"]):
         t = torch.from_numpy(np.load(os.path.join(path, e["file"])))
-        leaves.append(t if devices is None else t.to(devices[i]))
+        leaves.append(t if where is None else shd.put(t, where[i]))
     return _unflatten(template, iter(leaves)), step
 
 

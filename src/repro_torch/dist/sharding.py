@@ -1,0 +1,346 @@
+"""Logical-axis sharding rules as DTensor placements.
+
+Port of ``repro/dist/sharding.py``.  Every parameter and cache leaf has a
+tuple of *logical axis names* per dimension (``models/carry.py``:
+``param_axes``, ``cache_axes``).  A :class:`Rules` object maps logical
+names onto mesh axes and turns (logical axes, concrete shape) into the
+reference's canonical ``PartitionSpec`` tuple (``spec``), dropping any
+assignment whose mesh-axis product does not divide the dimension and never
+using one mesh axis twice, and into one DTensor ``Placement`` per mesh
+dimension (``placements``).  A tensor dimension mapped to several mesh
+axes, ``("pod", "data")``, is ``Shard(d)`` on each of them: DTensor splits
+it over the mesh dimensions in mesh order, the major-to-minor order of
+JAX's ``P(("pod", "data"))``.
+
+``Rules`` reads only the mesh's axis names and sizes, so it works on a
+``DeviceMesh`` and on ``launch.mesh.Mesh`` (shape only, no ranks) alike.
+
+Rule sets, as the reference's:
+
+- ``train_compute_rules``  — tensor parallel over ``model``; batch over the
+  data axes (``("pod", "data")`` on the multi-pod mesh).
+- ``train_seqpar_rules``   — like compute, but activations shard the
+  *sequence* dimension over ``model``.
+- ``train_state_rules``    — ZeRO-style: master/optimizer state additionally
+  sharded over the data axes on the ``d_model`` dimension.
+- ``serve_rules``          — decode/prefill: KV-cache batch over data axes,
+  heads over ``model``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Union
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+AxisSpec = Union[str, tuple, None]
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} in mesh order, of a ``DeviceMesh`` or of the
+    port's shape-only ``launch.mesh.Mesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def _mesh_axis_size(mesh, axes: AxisSpec) -> int:
+    """Product of mesh-axis sizes a logical axis maps onto (1 for None)."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    shape = mesh_shape(mesh)
+    out = 1
+    for a in axes:
+        out *= shape.get(a, 1)
+    return out
+
+
+def _batch_axes(mesh) -> AxisSpec:
+    """Every non-model mesh axis carries batch (pod x data on multi-pod)."""
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in shape)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
+def placements_of(mesh, spec: tuple) -> tuple:
+    """The DTensor placements of a ``PartitionSpec`` tuple: per mesh
+    dimension, ``Shard(d)`` if tensor dimension ``d`` names it, else
+    ``Replicate()``."""
+    where = {}
+    for d, entry in enumerate(spec):
+        for a in (() if entry is None else
+                  (entry,) if isinstance(entry, str) else entry):
+            if a in where:
+                raise ValueError(f"mesh axis {a!r} used twice in {spec}")
+            where[a] = d
+    names = list(mesh_shape(mesh))
+    unknown = set(where) - set(names)
+    if unknown:
+        raise ValueError(f"{spec} names {sorted(unknown)}, not axes of the "
+                         f"mesh {names}")
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in names)
+
+
+def spec_of(mesh, placements, ndim: int) -> tuple:
+    """The canonical ``PartitionSpec`` tuple of DTensor ``placements``
+    (the inverse of ``placements_of``): per tensor dimension the mesh
+    axes that shard it, in mesh order; trailing ``None`` trimmed."""
+    names = list(mesh_shape(mesh))
+    out: list = [[] for _ in range(ndim)]
+    for a, p in zip(names, placements):
+        if isinstance(p, Shard):
+            out[p.dim].append(a)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"{p} on mesh axis {a!r} is not a layout")
+    spec = [None if not e else e[0] if len(e) == 1 else tuple(e)
+            for e in out]
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a ``PartitionSpec`` tuple: the reference's
+    ``NamedSharding``, with its DTensor ``placements``."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements_of(self.mesh, self.spec)
+
+
+@dataclasses.dataclass
+class Rules:
+    """Logical-axis -> mesh-axis mapping plus the spec/sharding builders."""
+
+    mesh: Any
+    rules: dict  # logical axis name -> mesh axis | tuple of mesh axes | None
+
+    def spec(self, logical: tuple, shape: tuple) -> tuple:
+        """``PartitionSpec`` tuple for one array: per-dim lookup with
+        validity checks (divisibility; each mesh axis used at most once;
+        the first tensor dimension wins)."""
+        sizes = mesh_shape(self.mesh)
+        used: set = set()
+        out = []
+        for name, dim in zip(logical, shape):
+            mx = self.rules.get(name) if name is not None else None
+            if mx is None:
+                out.append(None)
+                continue
+            axes = (mx,) if isinstance(mx, str) else tuple(mx)
+            axes = tuple(a for a in axes if a in sizes and a not in used)
+            size = _mesh_axis_size(self.mesh, axes)
+            if not axes or size <= 1 or int(dim) % size != 0:
+                out.append(None)
+                continue
+            used.update(axes)
+            out.append(axes[0] if len(axes) == 1 else axes)
+        while out and out[-1] is None:  # canonical short spec
+            out.pop()
+        return tuple(out)
+
+    def placements(self, logical: tuple, shape: tuple) -> tuple:
+        """One DTensor ``Placement`` per mesh dimension."""
+        return placements_of(self.mesh, self.spec(logical, shape))
+
+    def sharding(self, logical: tuple, shape: tuple) -> NamedSharding:
+        return NamedSharding(self.mesh, self.spec(logical, shape))
+
+
+def _model_sharded(mesh, *, batch: AxisSpec, seq: AxisSpec = None,
+                   extra: Optional[dict] = None) -> Rules:
+    rules = {
+        "batch": batch,
+        "seq": seq,
+        # weights: shard the "wide" dimension of each layer over model
+        "d_ff": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "vocab": "model",
+        "experts": "model",
+        "expert_ff": "model",
+        "d_inner": "model",
+        "heads_ssm": "model",
+        # replicated by default
+        "d_model": None,
+        "ssm_state": None,
+        "ssm_proj": None,
+        "dt_rank": None,
+        "conv": None,
+        "moe_dense": None,
+        # KV-cache axes (serving)
+        "cache_batch": batch,
+        "cache_seq": None,
+        "cache_kv_heads": "model",
+        "cache_hd": None,
+    }
+    rules.update(extra or {})
+    return Rules(mesh, rules)
+
+
+def train_compute_rules(mesh) -> Rules:
+    """Compute-dtype params: tensor parallel over ``model``, batch over
+    data."""
+    return _model_sharded(mesh, batch=_batch_axes(mesh))
+
+
+def train_seqpar_rules(mesh) -> Rules:
+    """Sequence parallelism: activations shard seq over ``model``; weight
+    layout matches the TP rules (the math is identical)."""
+    return _model_sharded(mesh, batch=_batch_axes(mesh), seq="model")
+
+
+def train_state_rules(mesh) -> Rules:
+    """float32 master params + optimizer moments (and ZeRO-3 compute
+    params): additionally sharded over the data axes on ``d_model`` so
+    state memory scales down with the full device count."""
+    return _model_sharded(mesh, batch=_batch_axes(mesh),
+                          extra={"d_model": _batch_axes(mesh)})
+
+
+def serve_rules(mesh, *, batch: int, kv_heads: int, seq: int) -> Rules:
+    """Decode/prefill: slot-batch over the data axes, heads over ``model``.
+    The (batch, kv_heads, seq) hints keep the signature explicit at call
+    sites; divisibility is re-checked per array in ``Rules.spec``."""
+    del batch, kv_heads, seq
+    return _model_sharded(mesh, batch=_batch_axes(mesh))
+
+
+def _is_axes_leaf(x: Any) -> bool:
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str)
+                                        for e in x)
+
+
+def tree_shardings(rules: Rules, shapes: Any, axes: Any) -> Any:
+    """Map a tree (nested dicts) of logical-axes tuples and a matching tree
+    of tensors (meta or real) to a tree of ``NamedSharding``s."""
+    if _is_axes_leaf(axes):
+        return rules.sharding(axes, tuple(shapes.shape))
+    return {k: tree_shardings(rules, shapes[k], a) for k, a in axes.items()}
+
+
+def batch_shardings(rules: Rules, specs: dict) -> dict:
+    """Input-batch shardings: dim 0 is the global batch, dim 1 (when
+    present) the sequence; trailing dims (the patch embedding width)
+    replicate."""
+    out = {}
+    for k, v in specs.items():
+        logical = ("batch",) + (("seq",) if v.ndim > 1 else ())
+        logical = logical + (None,) * (v.ndim - len(logical))
+        out[k] = rules.sharding(logical, tuple(v.shape))
+    return out
+
+
+# -- placing tensors ---------------------------------------------------------
+
+
+def put(t: torch.Tensor, sharding):
+    """The whole tensor ``t`` (the same on every rank) on ``sharding``: a
+    ``NamedSharding`` on a ``DeviceMesh`` gives a DTensor (rank 0 of each
+    mesh dimension sends, each rank keeps its own shard); one on the
+    shape-only ``launch.mesh.Mesh``, or a ``torch.device``, a plain tensor
+    on that device.  The port's ``jax.device_put``."""
+    if isinstance(sharding, (torch.device, str)):
+        return t.to(sharding)
+    mesh = sharding.mesh
+    if not isinstance(mesh, DeviceMesh):
+        return t.to(mesh.device)
+    return distribute_tensor(t.to(mesh.device_type), mesh,
+                             list(sharding.placements))
+
+
+def mesh_barrier(mesh: DeviceMesh):
+    """Every rank of ``mesh`` waits for its rank 0: a one-element
+    broadcast along each mesh dimension."""
+    distribute_tensor(torch.zeros(1, device=mesh.device_type), mesh,
+                      [Replicate()] * mesh.ndim).to_local()
+
+
+def is_mesh_rank0(mesh: DeviceMesh) -> bool:
+    return all(c == 0 for c in mesh.get_coordinate())
+
+
+def constrain(t: DTensor, sharding: NamedSharding) -> DTensor:
+    """``t`` redistributed to ``sharding``: the port's
+    ``with_sharding_constraint``."""
+    pl = tuple(sharding.placements)
+    if tuple(t.placements) == pl:
+        return t
+    return t.redistribute(sharding.mesh, pl)
+
+
+def whole_dim(t, dim: int, parts: int = 1):
+    """``t`` with tensor dimension ``dim`` gathered (Replicate) if the mesh
+    dimensions that shard it do not divide ``parts`` (with the default 1:
+    whenever it is sharded).  DTensor cannot unflatten a dimension into
+    ``parts`` rows unless each shard holds whole rows (``aten.view``
+    raises "Cannot unflatten unevenly sharded tensor"; GSPMD pads), and
+    has no reliable rule for indexing a table by rows that it shards
+    (``aten.index.Tensor`` on a vocab-sharded embedding).  A plain tensor
+    passes unchanged."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    mesh, pl = t.device_mesh, list(t.placements)
+    on = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == dim]
+    ways = 1
+    for i in on:
+        ways *= mesh.size(i)
+    if parts % ways == 0:
+        return t
+    for i in on:
+        pl[i] = Replicate()
+    return t.redistribute(mesh, pl)
+
+
+def local_write(buf, new):
+    """(``buf``'s local shard, ``new`` laid out as ``buf`` and taken as its
+    local shard), for an in-place write of ``new`` into ``buf`` shard by
+    shard (a cache update).  DTensor's in-place ops cannot change the
+    layout of their target, and on a view of a cache (a layer of it) they
+    may write into a temporary; so the caller writes the local shards
+    itself.  ``new`` must match ``buf`` on every sharded dimension.  Plain
+    tensors pass unchanged."""
+    if not isinstance(buf, DTensor):
+        return buf, new
+    mesh = buf.device_mesh
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return buf.to_local(), new.redistribute(mesh, buf.placements).to_local()
+
+
+def batch_only(t):
+    """DTensor ``t`` sharded on its leading (batch) dimension alone: every
+    other mesh placement made Replicate (a Partial sum reduced).  DTensor's
+    own choice for some products (a residual stream sharded on
+    ``d_model``, the Partial output of a row-sharded projection) leads the
+    SSM's backward to a redistribute it cannot do ("from S(1) to
+    P(sum)"); GSPMD reaches the same layouts by all-reduce.  A plain
+    tensor passes unchanged."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in t.placements]
+    if list(t.placements) == pl:
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and of matching trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)

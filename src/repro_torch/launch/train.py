@@ -15,8 +15,9 @@ only ``tokens``, ``labels`` and ``loss_mask``, so the VLM and enc-dec
 archs (internvl2-2b, whisper-medium), whose steps also take
 ``patch_embeds`` or ``frames``, fail: every step raises ``ValueError``,
 the trainer restarts ``max_restarts`` times and then raises.  Without
-``--smoke`` the launcher asks for the 16 x 16 production mesh, which one
-machine does not have (``--production-mesh`` is parsed and, as in the
+``--smoke`` the launcher asks for the 16 x 16 production mesh, a
+``DeviceMesh`` over 256 ranks of the default process group, which raises
+``ValueError`` below that (``--production-mesh`` is parsed and, as in the
 reference, unused).
 """
 from __future__ import annotations

@@ -17,6 +17,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from torch.distributed.tensor import DTensor
+
+from ..dist.sharding import constrain, local_write, whole_dim
 from .common import apply_rope, dtype_of, einsum, matmul, recompute
 
 NEG_INF = -1e30
@@ -52,16 +55,27 @@ class Attention(nn.Module):
         v = matmul(xkv, self.wv)
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, S, nq, hd)
-        k = k.reshape(B, xkv.shape[1], nkv, hd)
-        v = v.reshape(B, xkv.shape[1], nkv, hd)
+        # a DTensor's head dimension must split into whole heads
+        # (``whole_dim``: gathered on a mesh axis that does not divide them)
+        q = whole_dim(q, -1, nq).reshape(B, S, nq, hd)
+        k = whole_dim(k, -1, nkv).reshape(B, xkv.shape[1], nkv, hd)
+        v = whole_dim(v, -1, nkv).reshape(B, xkv.shape[1], nkv, hd)
         return q, k, v
 
     def forward(self, x, positions, *, causal=True, xkv=None, q_chunk=512,
-                kv_chunk=1024, use_rope=True):
+                kv_chunk=1024, use_rope=True, q_spec=None, kv_spec=None):
         """Full-sequence attention (train / prefill / encoder / cross with
-        ``xkv``).  Returns ``(out, (k, v))``."""
+        ``xkv``).  Returns ``(out, (k, v))``.
+
+        ``q_spec``/``kv_spec`` (``dist.sharding.NamedSharding``s of the 4-D
+        (B, S, H, hd) DTensors) pin the GQA layout when ``n_kv_heads`` does
+        not divide the model axis: q and k/v are redistributed to them, the
+        reference's sharding constraints."""
         q, k, v = self.project_qkv(x, xkv)
+        if q_spec is not None:
+            q = constrain(q, q_spec)
+        if kv_spec is not None:
+            k, v = constrain(k, kv_spec), constrain(v, kv_spec)
         if xkv is None and use_rope:  # self-attention: rope both
             q = apply_rope(q, positions, self.cfg.rope_theta)
             k = apply_rope(k, positions, self.cfg.rope_theta)
@@ -91,7 +105,7 @@ class Attention(nn.Module):
             else:
                 _update_slice(cache[name], new, pos)
         S = cache["k"].shape[1]
-        qh = (q * hd ** -0.5).reshape(B, nkv, g, hd)
+        qh = (whole_dim(q, 2, nkv) * hd ** -0.5).reshape(B, nkv, g, hd)
         s = einsum("bkgh,bskh->bkgs", qh, cache["k"]).to(torch.float32)
         kv_pos = torch.arange(S, device=x.device)[None, None, None, :]
         bound = pos[:, None, None, None] if per_slot else pos
@@ -111,6 +125,10 @@ def _scatter_rows(buf, pos, rows):
     idx = torch.where(idx < 0, idx + S, idx)
     keep = (idx >= 0) & (idx < S)
     safe = idx.clamp(0, S - 1)
+    if isinstance(buf, DTensor):
+        raise NotImplementedError(
+            "per-slot positions over a sharded cache: the sharded serving "
+            "steps decode at one position")
     b = torch.arange(buf.shape[0], device=buf.device)
     buf[b, safe] = torch.where(keep[:, None, None], rows.to(buf.dtype),
                                buf[b, safe])
@@ -126,6 +144,8 @@ def _update_slice(buf, new, start):
     first = torch.clamp(torch.as_tensor(start, device=buf.device),
                         0, buf.shape[1] - n)
     idx = first.long().reshape(1) + torch.arange(n, device=buf.device)
+    # a DTensor cache is written shard by shard (``local_write``)
+    buf, new = local_write(buf, new)
     buf.index_copy_(1, idx, new.to(buf.dtype))
 
 
@@ -208,13 +228,17 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     Skv, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
     scale = hd ** -0.5
-    q = (q * scale).reshape(B, Sq, nkv, g, hd)
-
     nqc = _chunk_count(Sq, q_chunk)
     q_chunk = Sq // nqc
     nkc = _chunk_count(Skv, kv_chunk)
     kv_chunk = Skv // nkc
 
+    # DTensors: the heads split into (nkv, g) and the sequences into
+    # chunks only along whole shards (``whole_dim``; the GQA pinning's
+    # q sharded over more ways than nkv is gathered here)
+    q = whole_dim(whole_dim(q, 2, nkv), 1, nqc)
+    k, v = (whole_dim(t, 1, nkc) for t in (k, v))
+    q = (q * scale).reshape(B, Sq, nkv, g, hd)
     q_ch = q.reshape(B, nqc, q_chunk, nkv, g, hd)
     k_ch = k.reshape(B, nkc, kv_chunk, nkv, hd)
     v_ch = v.reshape(B, nkc, kv_chunk, nkv, hd)

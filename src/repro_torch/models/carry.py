@@ -19,7 +19,13 @@ Both sides cross as numpy arrays, so nothing here imports the JAX package:
 - :func:`state_from_reference` and :func:`state_to_numpy` do the same for
   a train state (step, float32 master, m and v; ``optim/adamw.py``);
 - :func:`reference_order` sorts the port's names as the reference's
-  pytree orders its leaves.
+  pytree orders its leaves;
+- :func:`param_axes` and :func:`cache_axes` give the reference's logical
+  sharding axes (``dist/sharding.py``) of every parameter under the
+  port's names, and of every cache leaf, from the config alone.  A
+  parameter of an unstacked layer drops the reference's leading
+  ``"layers"`` (no rule maps it to a mesh axis); the caches stay stacked
+  and keep it.
 
 A model of either package carried from the same arrays computes the same
 function, up to the rounding of each package's kernels.
@@ -122,6 +128,78 @@ def _put(tree, path, value):
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
+
+
+# logical axes of each leaf, by the module that holds it (the reference's
+# ``init_*`` return them beside their parameters)
+_ATTN = {"wq": ("d_model", "heads"), "wk": ("d_model", "kv_heads"),
+         "wv": ("d_model", "kv_heads"), "wo": ("heads", "d_model"),
+         "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
+_MLP = {"wi": ("d_model", "d_ff"), "wg": ("d_model", "d_ff"),
+        "wo": ("d_ff", "d_model"), "bi": ("d_ff",), "bo": ("d_model",)}
+_MOE = {"router": ("d_model", "experts"),
+        "wi": ("experts", "d_model", "expert_ff"),
+        "wg": ("experts", "d_model", "expert_ff"),
+        "wo": ("experts", "expert_ff", "d_model")}
+_SSM_COMMON = {"in_proj": ("d_model", "d_inner_x2"),
+               "conv_w": ("conv", "d_inner"), "conv_b": ("d_inner",),
+               "out_proj": ("d_inner", "d_model")}
+_MAMBA = {
+    1: dict(_SSM_COMMON, x_proj=("d_inner", "ssm_proj"),
+            dt_proj=("dt_rank", "d_inner"), dt_bias=("d_inner",),
+            A_log=("d_inner", "ssm_state"), D=("d_inner",)),
+    2: dict(_SSM_COMMON, A_log=("heads_ssm",), dt_bias=("heads_ssm",),
+            D=("heads_ssm",), norm_w=("d_inner",)),
+}
+_NORM = {"w": ("d_model",), "b": ("d_model",)}
+_TOP = {"embed": ("vocab", "d_model"), "lm_head": ("d_model", "vocab"),
+        "dec_pos": (None, "d_model")}
+_BY_MODULE = {"attn": _ATTN, "self_attn": _ATTN, "cross_attn": _ATTN,
+              "mlp": _MLP, "shared": _MLP, "moe": _MOE,
+              **{n: _NORM for n in ("ln", "ln1", "ln2", "ln3", "final_norm",
+                                    "enc_norm", "dec_norm")}}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """{the port's parameter name: its logical axes}, in the reference's
+    leaf order, from ``cfg`` alone (the model is built on the meta
+    device)."""
+    out = {}
+    for name, p in empty_model(cfg, "meta").named_parameters():
+        parts = name.split(".")
+        if len(parts) == 1:
+            table = _TOP
+        elif parts[-2] == "ssm":
+            table = _MAMBA[cfg.ssm.version]
+        else:
+            table = _BY_MODULE[parts[-2]]
+        axes = table[parts[-1]]
+        if len(axes) != p.ndim:
+            raise ValueError(f"{name}: axes {axes} for shape {tuple(p.shape)}")
+        out[name] = axes
+    return {k: out[k] for k in reference_order(out)}
+
+
+_KV_CACHE = ("layers", "cache_batch", "cache_seq", "cache_kv_heads",
+             "cache_hd")
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``init_lm_cache``'s (or, for the enc-dec
+    family, ``init_encdec_cache``'s) tree, layers stacked first."""
+    kv = {"k": _KV_CACHE, "v": _KV_CACHE}
+    if cfg.family == "encdec":
+        return {"self": dict(kv), "cross": dict(kv)}
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        state = (("cache_batch", "d_inner", None) if cfg.ssm.version == 1
+                 else ("cache_batch", "heads_ssm", None, None))
+        out["ssm"] = {"conv": ("layers", "cache_batch", None, "d_inner"),
+                      "ssm": ("layers",) + state}
+        if cfg.family == "ssm":
+            return out
+    out["attn"] = kv
+    return out
 
 
 def reference_key(name: str):

@@ -3,7 +3,9 @@
 Port of ``repro/models/common.py``.  Parameters live in ``nn.Module``s
 (``Norm`` here; the attention and MLP modules beside it) under the
 reference's names and ``(d_in, d_out)`` layouts.  The reference's logical
-sharding axes have no counterpart: the port runs on one device.
+sharding axes are ``carry.param_axes``' (by the module that holds each
+leaf), and its sharded steps run these layers on DTensors
+(``launch/steps.py``); :func:`lookup` gathers a row-sharded table.
 
 Mixed dtypes follow the reference's results: torch does not promote
 between bfloat16 and float32 in a matrix product, so :func:`matmul` and
@@ -17,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import whole_dim
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
@@ -25,13 +29,21 @@ def dtype_of(name: str) -> torch.dtype:
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted dtype, as ``jnp.matmul`` computes it."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    return torch.matmul(a.to(dt), b.to(dt))
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` of two operands: both in the promoted dtype."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``table`` (an embedding).  A DTensor table sharded
+    by rows (vocab over the model axis) is gathered first
+    (``dist.sharding.whole_dim``): DTensor's ``aten.index.Tensor`` rule
+    does not hold for it."""
+    return whole_dim(table, 0)[idx.long()]
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float,

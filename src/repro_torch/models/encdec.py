@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from .attention import Attention, init_cache
-from .common import (Norm, draw_weights, dtype_of, einsum, matmul,
+from .common import (Norm, draw_weights, dtype_of, einsum, lookup, matmul,
                      recompute, sinusoidal_positions, softmax_cross_entropy)
 from .config import ModelConfig
 from .mlp import MLP
@@ -142,7 +142,7 @@ def decode_train(cfg: ModelConfig, model: EncDec, tokens, enc_out, *,
     pos_table = model.dec_pos
     if S > pos_table.shape[0]:  # tile learned positions for long-form shapes
         pos_table = pos_table.repeat(-(-S // pos_table.shape[0]), 1)
-    x = model.embed[tokens.long()] + pos_table[:S]
+    x = lookup(model.embed, tokens) + pos_table[:S]
     positions = _positions(B, S, x.device)
     for i, blk in enumerate(model.dec_blocks):
         y = recompute(blk, x, positions, enc_out, q_chunk=q_chunk,
@@ -206,8 +206,8 @@ def encdec_decode_step(cfg: ModelConfig, model: EncDec, token, cache, pos):
     hd, nq, nkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
     g = nq // nkv
     pos = torch.as_tensor(pos, device=token.device)
-    pos_emb = model.dec_pos[pos % model.dec_pos.shape[0]][None]  # (1, d)
-    x = model.embed[token.long()] + pos_emb
+    pos_emb = lookup(model.dec_pos, pos % model.dec_pos.shape[0])[None]  # (1, d)
+    x = lookup(model.embed, token) + pos_emb
     for i, blk in enumerate(model.dec_blocks):
         sc = {k: t[i] for k, t in cache["self"].items()}
         ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]

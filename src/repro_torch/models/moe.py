@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from .common import dtype_of, einsum, matmul
 from .mlp import MLP
@@ -93,12 +94,28 @@ def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
 
 
 def moe_block(cfg, module: MoE, x):
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss).
+
+    On DTensors (a sharded step), the capacity dispatch has no sharding
+    rule (``index_put_`` by slot into a buffer the block makes, slot counts
+    by ``cumsum`` over every token of the call): the tokens and the router
+    are gathered (redistributed to Replicate) and the routing, dispatch and
+    combine run on each rank's whole local copy, the same on every rank;
+    the expert products stay DTensors, experts over the model axis, and
+    their output is gathered back.  The output returns to ``x``'s shards
+    (a Partial placement of ``x`` as Replicate)."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.n_experts, m.top_k
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    if mesh is not None:
+        # back to x's layout after (a Partial sum comes back reduced)
+        layout = [Replicate() if p.is_partial() else p for p in x.placements]
+        x, router = whole(x), whole(module.router)
+    else:
+        router = module.router
     xt = x.reshape(T, d)
-    r = route(cfg, module.router, xt)
+    r = route(cfg, router, xt)
     C = r.capacity
 
     # Dispatch by index: each kept pair's token id into its slot, then
@@ -113,9 +130,14 @@ def moe_block(cfg, module: MoE, x):
     eb = xpad[tok_for_slot[:E * C]].reshape(E, C, d)
 
     # Expert compute: batched products over the stacked expert weights.
+    if mesh is not None:
+        eb = replicated(eb, mesh)
     h = F.silu(einsum("ecd,edf->ecf", eb, module.wg)) * einsum(
         "ecd,edf->ecf", eb, module.wi)
-    eo = einsum("ecf,efd->ecd", h, module.wo).reshape(E * C, d)
+    eo = einsum("ecf,efd->ecd", h, module.wo)
+    if mesh is not None:
+        eo = whole(eo)
+    eo = eo.reshape(E * C, d)
     eo = torch.cat([eo, eo.new_zeros(1, d)])
 
     # Combine: gather back, weight by gate, sum a token's k pairs in slot
@@ -133,5 +155,26 @@ def moe_block(cfg, module: MoE, x):
     aux = m.router_aux_coef * E * torch.sum(me * ce)
 
     if m.n_shared_experts:
-        out = out + module.shared(xt)
-    return out.reshape(B, S, d), aux
+        if mesh is None:
+            out = out + module.shared(xt)
+        else:
+            out = out + whole(module.shared(replicated(xt, mesh)))
+    out = out.reshape(B, S, d)
+    if mesh is None:
+        return out, aux
+    return (replicated(out, mesh).redistribute(mesh, layout),
+            replicated(aux, mesh))
+
+
+def whole(t: DTensor) -> torch.Tensor:
+    """The whole of DTensor ``t`` as this rank's plain tensor: gathered
+    (redistributed to Replicate) first, so every rank holds the same."""
+    mesh = t.device_mesh
+    return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def replicated(t: torch.Tensor, mesh) -> DTensor:
+    """A whole tensor that every rank holds alike, as a replicated
+    DTensor."""
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)

@@ -3,8 +3,9 @@
 Port of ``repro/models/registry.py``.  ``batch_shapes`` gives the shapes and
 torch dtypes of every model input of a shape cell; ``make_batch`` fills them
 from a seeded numpy generator, as the reference does, for smoke tests.  ``loss_fn``
-picks the family's training loss.  The reference's ``input_specs``
-(abstract stand-ins for the dry-run) is not ported yet.
+picks the family's training loss.  ``input_specs`` gives the same inputs
+as meta tensors, the port's ``jax.ShapeDtypeStruct`` stand-ins: shapes
+and dtypes, no memory.
 """
 from __future__ import annotations
 
@@ -97,6 +98,13 @@ def batch_shapes(cfg: ModelConfig, shape: ShapeConfig, *,
     if shape.kind == "decode":
         return {"token": ((B, 1), torch.int32)}
     raise ValueError(shape.kind)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                masked: bool = False) -> dict[str, torch.Tensor]:
+    """Every input of a shape cell as a tensor on the meta device."""
+    return {k: torch.empty(s, dtype=d, device="meta")
+            for k, (s, d) in batch_shapes(cfg, shape, masked=masked).items()}
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0, *,

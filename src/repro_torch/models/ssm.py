@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import batch_only
 from .common import dtype_of, einsum, matmul, softplus
 
 SCAN_CHUNK = 512  # sequence chunk for the chunked recurrence (memory knob)
@@ -40,11 +41,14 @@ def _combine(ax, bx, ay, by):
 
 
 def _interleave(even, odd):
-    """Positions 0, 2, ... from ``even``, 1, 3, ... from ``odd`` (axis 1)."""
-    n = even.shape[1] + odd.shape[1]
-    out = even.new_empty((even.shape[0], n) + tuple(even.shape[2:]))
-    out[:, 0::2] = even
-    out[:, 1::2] = odd
+    """Positions 0, 2, ... from ``even``, 1, 3, ... from ``odd`` (axis 1),
+    without writing into strided slices (DTensor's backward of such a
+    write cannot bring its gradient to the buffer's layout)."""
+    n_o = odd.shape[1]
+    pairs = torch.stack([even[:, :n_o], odd], dim=2)  # (B, n_o, 2, ...)
+    out = pairs.reshape((even.shape[0], 2 * n_o) + tuple(even.shape[2:]))
+    if even.shape[1] > n_o:
+        out = torch.cat([out, even[:, n_o:]], dim=1)
     return out
 
 
@@ -183,7 +187,8 @@ def _mamba1_proj(cfg, p, xi):
     """x_proj, then dt (float32 after softplus), B and C."""
     s = cfg.ssm
     dtr = s.dt_rank or cfg.d_model // 16
-    proj = matmul(xi, p.x_proj)
+    # on DTensors the row-sharded product's Partial sum is reduced here
+    proj = batch_only(matmul(xi, p.x_proj))
     dt_in, Bc, Cc = proj.split([dtr, s.d_state, s.d_state], dim=-1)
     dt = softplus(matmul(dt_in, p.dt_proj) + p.dt_bias).to(torch.float32)
     return dt, Bc, Cc
@@ -191,8 +196,10 @@ def _mamba1_proj(cfg, p, xi):
 
 def mamba1_block(cfg, p: Mamba1, x, *, state=None):
     """x: (B, S, d).  state: None (train/prefill) or dict {conv, ssm} to
-    continue from.  Returns (y, {"conv", "ssm"}: the final states)."""
+    continue from.  Returns (y, {"conv", "ssm"}: the final states).  A
+    DTensor ``x`` enters sharded on its batch alone (``batch_only``)."""
     din = cfg.ssm.expand * cfg.d_model
+    x = batch_only(x)
     xi, z = matmul(x, p.in_proj).split([din, din], dim=-1)
     conv_state = None if state is None else state["conv"]
     xi, new_conv = _causal_conv(xi, p.conv_w, p.conv_b, conv_state)
@@ -203,8 +210,11 @@ def mamba1_block(cfg, p: Mamba1, x, *, state=None):
     xf = xi.to(torch.float32)
     Bf = Bc.to(torch.float32)
     Cf = Cc.to(torch.float32)
-    a = torch.exp(dt[..., None] * A[None, None])  # (B, S, din, N)
-    bterm = (dt * xf)[..., None] * Bf[:, :, None, :]  # (B, S, din, N)
+    # on DTensors the scan's operands are laid out by batch alone: the
+    # scan's strided slices and interleaves would gather them anyway, and
+    # DTensor's backward through them cannot reach a sharded ``A_log``
+    a = batch_only(torch.exp(dt[..., None] * A[None, None]))  # (B, S, din, N)
+    bterm = batch_only((dt * xf)[..., None] * Bf[:, :, None, :])
     h0 = None if state is None else state["ssm"]  # (B, din, N)
     h, last = _chunked_assoc_scan(a, bterm, h0)
     y = torch.einsum("bsdn,bsn->bsd", h, Cf) + p.D * xf
@@ -288,9 +298,11 @@ def mamba2_block(cfg, p: Mamba2, x, *, state=None):
     """SSD with scalar-per-head decay. x: (B, S, d).  The chunked matmul
     form where the reference takes it (``S % SSD_CHUNK == 0`` and ``S >
     SSD_CHUNK``), else the associative scan over the (B, S, nh, hp, N)
-    state.  Returns (y, {"conv", "ssm"})."""
+    state.  Returns (y, {"conv", "ssm"}).  A DTensor ``x`` enters sharded
+    on its batch alone (``batch_only``)."""
     s = cfg.ssm
     B, S, _ = x.shape
+    x = batch_only(x)
     z, xi, Bc, Cc, dtr, din, nh = _split_m2(cfg, matmul(x, p.in_proj))
     xbc = torch.cat([xi, Bc, Cc], dim=-1)
     conv_state = None if state is None else state["conv"]

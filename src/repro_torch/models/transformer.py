@@ -29,10 +29,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..dist.sharding import local_write
 from . import attention as attn_mod
 from . import ssm as ssm_mod
-from .common import (Norm, draw_weights, dtype_of, matmul, recompute,
-                     softmax_cross_entropy)
+from .common import (Norm, draw_weights, dtype_of, lookup, matmul,
+                     recompute, softmax_cross_entropy)
 from .config import ModelConfig
 from .mlp import MLP
 from .moe import MoE
@@ -87,13 +88,15 @@ class Block(nn.Module):
         out, aux = self.moe(self.ln2(x))
         return x + out, aux
 
-    def forward(self, x, positions, *, q_chunk, kv_chunk, cache=None):
+    def forward(self, x, positions, *, q_chunk, kv_chunk, cache=None,
+                q_spec=None, kv_spec=None):
         """The reference's ``_dense_block_fwd``: returns (x, aux).  With
         ``cache`` (this layer's k/v, batch-first) the block's k/v are
         written into it from position 0, as ``lm_prefill``'s scan body
-        does."""
+        does.  ``q_spec``/``kv_spec``: the attention's GQA pinning."""
         h, (k, v) = self.attn(self.ln1(x), positions, q_chunk=q_chunk,
-                              kv_chunk=kv_chunk)
+                              kv_chunk=kv_chunk, q_spec=q_spec,
+                              kv_spec=kv_spec)
         if cache is not None:
             attn_mod._update_slice(cache["k"], k, 0)
             attn_mod._update_slice(cache["v"], v, 0)
@@ -124,6 +127,13 @@ class SSMBlock(nn.Module):
         out, st = ssm_mod.decode_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),
                                               state)
         return x + out, st
+
+
+def write(buf, new):
+    """``buf.copy_(new)``; a DTensor ``buf`` shard by shard
+    (``dist.sharding.local_write``)."""
+    buf, new = local_write(buf, new)
+    buf.copy_(new)
 
 
 def hybrid_attn_layers(cfg) -> int:
@@ -182,7 +192,7 @@ class LM(nn.Module):
                                                     dtype=dt, device=device))
 
     def _inputs(self, tokens, patch_embeds):
-        x = self.embed[tokens.long()]
+        x = lookup(self.embed, tokens)
         if patch_embeds is not None:
             x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
@@ -204,11 +214,13 @@ class LM(nn.Module):
         return (("ssm", i) for i in range(self.cfg.n_layers))
 
     def _sequence(self, x, positions, *, q_chunk, kv_chunk, cache=None,
-                  remat=False):
+                  remat=False, q_spec=None, kv_spec=None):
         """Every layer over the whole sequence; with ``cache``, the
         attention layers write their k/v from position 0 and the SSM
         layers their final states, cast to the cache's dtype.  With
-        ``remat`` each block is checkpointed (``recompute``).  Returns
+        ``remat`` each block is checkpointed (``recompute``).  The GQA
+        pinning ``q_spec``/``kv_spec`` reaches the dense and MoE blocks
+        (not the hybrid's shared block), as in the reference.  Returns
         (x, the MoE layers' aux losses)."""
         kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, remat=remat)
         if self.cfg.family not in ("ssm", "hybrid"):
@@ -216,7 +228,8 @@ class LM(nn.Module):
             for i, blk in enumerate(self.layers()):
                 kv = None if cache is None else {
                     "k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
-                x, aux = recompute(blk, x, positions, cache=kv, **kw)
+                x, aux = recompute(blk, x, positions, cache=kv,
+                                   q_spec=q_spec, kv_spec=kv_spec, **kw)
                 if aux is not None:
                     auxs.append(aux)
             return x, auxs
@@ -230,14 +243,16 @@ class LM(nn.Module):
             x, st = recompute(self.blocks[i], x, remat=remat)
             if cache is not None:
                 for name, t in st.items():
-                    cache["ssm"][name][i].copy_(t)
+                    write(cache["ssm"][name][i], t)
         return x, []
 
     def forward(self, tokens, *, patch_embeds=None, q_chunk=512,
-                kv_chunk=1024, logits_mode="all", remat=False):
+                kv_chunk=1024, logits_mode="all", remat=False, q_spec=None,
+                kv_spec=None):
         x, positions = self._inputs(tokens, patch_embeds)
         x, auxs = self._sequence(x, positions, q_chunk=q_chunk,
-                                 kv_chunk=kv_chunk, remat=remat)
+                                 kv_chunk=kv_chunk, remat=remat,
+                                 q_spec=q_spec, kv_spec=kv_spec)
         # the MoE layers' summed aux loss (the dense-first layers add none)
         aux = (torch.stack(auxs).sum() if auxs else
                torch.zeros((), dtype=torch.float32, device=x.device))
@@ -257,7 +272,7 @@ class LM(nn.Module):
         return self._head(x), cache
 
     def decode_step(self, token, cache, pos):
-        x = self.embed[token.long()]
+        x = lookup(self.embed, token)
         if self.cfg.family in ("ssm", "hybrid"):
             for kind, i in self._ssm_schedule():
                 if kind == "attn":
@@ -273,7 +288,7 @@ class LM(nn.Module):
                 check_carry(x, y, f"mamba layer {i}")
                 x = y
                 for name, t in st.items():
-                    cs[name][i].copy_(t)
+                    write(cs[name][i], t)
         else:
             ck = cache["attn"]
             for i, blk in enumerate(self.layers()):
@@ -307,15 +322,18 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
 
 
 def lm_forward(cfg: ModelConfig, model: LM, tokens, *, patch_embeds=None,
-               q_chunk=512, kv_chunk=1024, logits_mode="all", remat=True):
+               q_chunk=512, kv_chunk=1024, logits_mode="all", remat=True,
+               q_spec=None, kv_spec=None):
     """tokens: (B, S) int.  VLM: patch_embeds (B, n_img, d) prepended.
 
     logits_mode: 'all' (training) | 'last' (prefill) | 'none' (returns hidden).
     remat: checkpoint each block while autograd records (a no-op under
-    ``torch.no_grad()``).  Returns (logits_or_hidden, aux_loss)."""
+    ``torch.no_grad()``).  q_spec/kv_spec: the GQA pinning of a sharded
+    step (``launch/steps.py``).  Returns (logits_or_hidden, aux_loss)."""
     _check_model(cfg, model)
     return model(tokens, patch_embeds=patch_embeds, q_chunk=q_chunk,
-                 kv_chunk=kv_chunk, logits_mode=logits_mode, remat=remat)
+                 kv_chunk=kv_chunk, logits_mode=logits_mode, remat=remat,
+                 q_spec=q_spec, kv_spec=kv_spec)
 
 
 def lm_loss(cfg: ModelConfig, model: LM, batch: dict, **kw):

@@ -13,8 +13,9 @@ Port of ``repro/runtime/trainer.py``:
 - ``inject_failure``, a hook for tests, is called before each step.
 
 Each step waits for the device (``torch.cuda.synchronize`` on the state's
-CUDA device) before its time is taken.  The reference's elastic
-``resize`` onto another mesh waits for the DeviceMesh port.
+CUDA device) before its time is taken.  ``resize`` moves the live state
+onto other shardings (elastic re-mesh: each leaf gathered whole, then laid
+out on its new mesh).
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ import time
 from typing import Any, Callable, Iterator, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..ckpt import checkpoint as ckpt
+from ..dist import sharding as shd
 
 Tree = Any
 
@@ -44,6 +47,8 @@ class TrainerConfig:
 def _wait(tree: Tree):
     """The reference's ``jax.block_until_ready`` on the first leaf."""
     leaf = next(ckpt._flatten(tree))[1]
+    if isinstance(leaf, DTensor):
+        leaf = leaf.to_local()
     if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
         torch.cuda.synchronize(leaf.device)
 
@@ -90,6 +95,17 @@ class Trainer:
         )
         self.events.append({"kind": "restore", "step": step})
         return step
+
+    def resize(self, new_state_shardings: Tree):
+        """Elastic re-mesh: every leaf of the live state gathered whole
+        (a DTensor's ``full_tensor()``) and put on its leaf of
+        ``new_state_shardings`` (devices or ``NamedSharding``s)."""
+        leaves = [shd.put(t.full_tensor() if isinstance(t, DTensor) else t, s)
+                  for (_, t), (_, s) in zip(ckpt._flatten(self.state),
+                                            ckpt._flatten(new_state_shardings))]
+        self.state = ckpt._unflatten(self.state, iter(leaves))
+        self.state_shardings = new_state_shardings
+        self.events.append({"kind": "resize"})
 
     # -- main loop ------------------------------------------------------------
 

@@ -1,10 +1,12 @@
-"""``chip_smoke.py``'s phases 12 and 13 rehearsed on the CPU at SMOKE
+"""``chip_smoke.py``'s phases 12, 13 and 14 rehearsed on the CPU at SMOKE
 size: the functions the card runs at full width (the SSM and hybrid
 engines under load with their checks (a) and (b), whisper's streams and
 its host check; the training launcher with its injected failure, the
-card-vs-CPU cut, and llama3.2-1b's trainer, checkpoint and compression),
-with ``device="cpu"``, so that a fault in the script shows before a chip
-run.  Device metrics (launches per tick, peak memory) are None here."""
+card-vs-CPU cut, and llama3.2-1b's trainer, checkpoint and compression;
+the mesh path's sharded train step and serving builders on a gloo group
+of one rank), with ``device="cpu"``, so that a fault in the script shows
+before a chip run.  Device metrics (launches per tick, peak memory) are
+None here."""
 import sys
 from pathlib import Path
 
@@ -61,3 +63,16 @@ def test_phase13_host_cut_and_llama_trainer(tmp_path):
     assert stats["peak_device_bytes"] is None
     assert stats["compress_max_err_over_scale"] <= 1.0
     assert not (tmp_path / "build" / "chip_smoke_train" / "llama_full").exists()
+
+
+def test_phase14_mesh_path_at_world_size_one():
+    """(a) the sharded step == the one-device step, bitwise; (b) the
+    builders == the direct calls, bitwise, and the float32 cut."""
+    train = cs.sharded_train_phase("cpu", device="cpu", smoke=True)
+    assert train["leaves_not_bitwise"] == []
+    assert train["losses"]["mesh"] == train["losses"]["one_device"]
+    assert len(train["losses"]["mesh"]) == cs.SHARD_STEPS
+    serve = cs.sharded_serve_phase("cpu", device="cpu", smoke=True)
+    assert serve["peak_device_bytes"] is None
+    assert serve["decode_steps"] == 4
+    assert max(serve["cut_errs"]) == 0.0

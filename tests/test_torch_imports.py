@@ -69,7 +69,9 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.runtime.trainer",
                                     "repro_torch.launch.steps",
                                     "repro_torch.launch.train",
-                                    "repro_torch.launch.mesh"])
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.dist",
+                                    "repro_torch.dist.sharding"])
 def test_service_obs_and_dag_import_without_jax(module):
     code = (
         "import sys, importlib\n"
@@ -125,6 +127,8 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         lambda: Engine(smoke, init_model(smoke, torch.Generator(),
                                          device="cpu")),
         lambda: mesh.make_local_mesh(1, 1),
+        lambda: mesh.make_local_mesh(2, 2),
+        lambda: mesh.make_production_mesh(),
         lambda: train.main(["--arch", "llama3.2-1b", "--smoke"]),
     ]
     for call in calls:

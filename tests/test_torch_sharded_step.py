@@ -1,0 +1,243 @@
+"""The port's sharded train step and serving step builders on a 4-rank
+DeviceMesh against the reference's on 4 host devices.
+
+At module start two subprocesses run every case (``torch_shard_worker.py``):
+the reference on 4 forced host devices and the port on 4 gloo ranks with
+JAX blocked, both from one starting state (the reference's
+``init_train_state`` on one device, carried by
+``carry.state_from_reference``) and the same batches.
+
+Train cases take 2 steps of llama3.2-1b SMOKE at (2, 2) tensor parallel
+and sequence parallel, at (1, 4) where ``n_kv_heads`` 2 does not divide
+the model axis (the GQA pinning), at (2, 2) with ``fsdp``, and of
+deepseek-moe-16b and falcon-mamba-7b SMOKE at (2, 2).  Tolerances: the
+loss within 2e-5 x |ref|, every master, m and v leaf within 1e-4 x max
+|ref leaf| (the tolerance of ``test_torch_train_step.py``'s three
+one-device steps: each rank sums its own float32 partial products, in an
+order neither package fixes), and each state leaf's placements, written
+as a ``PartitionSpec`` tuple, equal to the ``.sharding.spec`` of the
+reference's output.  Where the reference's own sharded result lies
+further than that from its one-device result on the same state and
+batches (AdamW divides by sqrt(v), so a gradient entry near zero turns a
+last-bit difference of the reduction order into a visible update: the
+MoE's ``embed``, 7.6e-4 x max at (2, 2)), a leaf may differ from the
+sharded reference by that spread on top of 1e-4 x max; the worker
+reports the spread, and the test prints each leaf it widened.
+
+Serving cases run ``build_prefill_step`` on a zero cache and then four
+``build_decode_step`` steps over that cache, for llama3.2-1b and
+whisper-medium SMOKE at (2, 2), in float32 (logits and cache leaves
+within 2e-5 x max) and bfloat16 (5e-2 x max)."""
+import os
+import pathlib
+import pickle
+import socket
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+import repro.configs as RC
+from repro.data import pipeline as R_data
+from repro.launch.mesh import make_local_mesh as R_mesh
+from repro.launch.steps import build_train_step as R_build
+from repro.launch.steps import init_train_state as R_init
+from repro.models import registry as R_reg
+from repro.models.config import ShapeConfig as R_Shape
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+LOSS_TOL, LEAF_TOL = 2e-5, 1e-4
+SERVE_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+SEQ, BATCH = 32, 4
+
+TRAIN = [
+    dict(name="llama_tp_2x2", arch="llama3.2-1b", mesh=(2, 2)),
+    dict(name="llama_seq_2x2", arch="llama3.2-1b", mesh=(2, 2), mode="seq"),
+    dict(name="llama_gqa_1x4", arch="llama3.2-1b", mesh=(1, 4)),
+    dict(name="llama_fsdp_2x2", arch="llama3.2-1b", mesh=(2, 2), fsdp=True),
+    dict(name="moe_2x2", arch="deepseek-moe-16b", mesh=(2, 2)),
+    dict(name="ssm_2x2", arch="falcon-mamba-7b", mesh=(2, 2)),
+]
+SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype)
+         for short, arch in (("llama", "llama3.2-1b"),
+                             ("whisper", "whisper-medium"))
+         for dtype in ("float32", "bfloat16")]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def numpy_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32)
+                        if a.dtype != np.int32 else np.asarray(a), tree)
+
+
+def start_state(arch, seq, batch):
+    """The reference's one-device initial train state, as numpy."""
+    cfg = RC.get_config(arch, smoke=True).with_(dtype="float32")
+    built = R_build(cfg, R_Shape("s", "train", seq, batch), R_mesh(1, 1),
+                    n_acc=1)
+    st = R_init(cfg, built)
+    return {"step": np.asarray(st.step), "params": numpy_tree(st.params),
+            "m": numpy_tree(st.m), "v": numpy_tree(st.v)}
+
+
+def train_batches(arch, seq, batch, n):
+    cfg = RC.get_config(arch, smoke=True)
+    data = R_data.SyntheticLM(cfg.vocab, seq, batch, seed=0)
+    return [data.next_batch() for _ in range(n)]
+
+
+def train_cases():
+    states = {}
+    for c in TRAIN:
+        if c["arch"] not in states:
+            states[c["arch"]] = start_state(c["arch"], SEQ, BATCH)
+        yield dict(c, kind="train", dtype="float32", seq=SEQ, batch=BATCH,
+                   n_acc=2, state=states[c["arch"]],
+                   batches=train_batches(c["arch"], SEQ, BATCH, 2))
+
+
+def serve_cases():
+    rng = np.random.default_rng(7)
+    for c in SERVE:
+        cfg = RC.get_config(c["arch"], smoke=True)
+        params, _ = R_reg.init_model(cfg.with_(dtype="float32"),
+                                     jax.random.key(3))
+        if cfg.family == "encdec":
+            inputs = {"frames": rng.normal(0, 1, (BATCH, SEQ, cfg.d_model))
+                      .astype(np.float32)}
+            positions = [0, 1, 2, 3]
+        else:
+            inputs = {"tokens": rng.integers(0, cfg.vocab, (BATCH, SEQ))
+                      .astype(np.int32)}
+            positions = [20, 21, 22, 23]
+        tokens = [rng.integers(0, cfg.vocab, (BATCH, 1)).astype(np.int32)
+                  for _ in positions]
+        yield dict(c, kind="serve", mesh=(2, 2), seq=SEQ, batch=BATCH,
+                   params=numpy_tree(params), inputs=inputs, tokens=tokens,
+                   positions=positions)
+
+
+def run_both(cases, tmp_path):
+    """Both packages' workers on ``cases``, side by side; their results."""
+    inp = tmp_path / "in.pkl"
+    with open(inp, "wb") as f:
+        pickle.dump({"cases": cases}, f)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    worker = str(ROOT / "tests" / "torch_shard_worker.py")
+    procs = {side: subprocess.Popen(
+        [sys.executable, worker, side, str(inp), str(tmp_path / f"{side}.pkl")]
+        + ([str(free_port())] if side == "port" else []),
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for side in ("ref", "port")}
+    out = {}
+    for side, p in procs.items():
+        log, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, f"{side} worker failed:\n{log[-4000:]}"
+        with open(tmp_path / f"{side}.pkl", "rb") as f:
+            out[side] = pickle.load(f)
+    return out
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    cases = list(train_cases()) + list(serve_cases())
+    return run_both(cases, tmp_path_factory.mktemp("shard"))
+
+
+def assert_close(got, want, tol, what):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), what
+        for k in want:
+            assert_close(got[k], want[k], tol, f"{what}/{k}")
+        return
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    scale = max(float(np.abs(want).max()) if want.size else 0.0, 1e-30)
+    assert err <= tol * scale, (what, err, scale)
+
+
+def pair(results, name):
+    ref, port = results["ref"][name], results["port"][name]
+    assert "error" not in ref, ref.get("error")
+    assert "error" not in port, port.get("error")
+    return ref, port
+
+
+def assert_specs(port_specs, ref_specs):
+    """The port's per-layer specs against the reference's stacked leaves,
+    whose leading layer axis maps to no mesh axis."""
+    from repro_torch.models.carry import STACKED
+
+    for field in ("params", "m", "v"):
+        flat = {}
+        for path, spec in jax.tree_util.tree_flatten_with_path(
+                ref_specs[field], is_leaf=lambda x: isinstance(x, tuple))[0]:
+            flat[tuple(k.key for k in path)] = spec
+        for name, got in port_specs[field].items():
+            parts = name.split(".")
+            if parts[0] in STACKED:
+                want = flat[(parts[0],) + tuple(parts[2:])]
+                assert not want or want[0] is None, (name, want)
+                want = want[1:]
+            else:
+                want = flat[tuple(parts)]
+            assert got == tuple(want), (field, name, got, want)
+
+
+def check_train(ref, port):
+    for a, b in zip(port["losses"], ref["losses"]):
+        assert abs(a - b) <= LOSS_TOL * abs(b), (port["losses"], ref["losses"])
+    assert int(port["state"]["step"]) == int(ref["state"]["step"])
+    one = ref.get("one_device_state")
+    for field in ("params", "m", "v"):
+        flat = jax.tree_util.tree_flatten_with_path(ref["state"][field])[0]
+        for path, want in flat:
+            got, single = port["state"][field], None if one is None else \
+                one[field]
+            for k in path:
+                got = got[k.key]
+                single = None if single is None else single[k.key]
+            scale = max(float(np.abs(want).max()), 1e-30)
+            spread = (0.0 if single is None
+                      else float(np.abs(want - single).max()))
+            if spread > LEAF_TOL * scale:
+                print(f"{field}{jax.tree_util.keystr(path)}: the reference's "
+                      f"sharded vs one-device spread {spread / scale:.3e} x "
+                      f"max")
+            else:
+                spread = 0.0
+            err = float(np.abs(got - want).max())
+            assert err <= LEAF_TOL * scale + spread, (
+                field, jax.tree_util.keystr(path), err / scale, spread / scale)
+    assert_specs(port["specs"], ref["specs"])
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in TRAIN])
+def test_train_steps_match_reference(results, name):
+    ref, port = pair(results, name)
+    assert port["n_acc"] == ref["n_acc"] == 2
+    check_train(ref, port)
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in SERVE])
+def test_serving_steps_match_reference(results, name):
+    ref, port = pair(results, name)
+    tol = SERVE_TOL[name.split("_")[1]]
+    assert_close(port["prefill_logits"], ref["prefill_logits"], tol,
+                 "prefill logits")
+    assert_close(port["prefill_cache"], ref["prefill_cache"], tol,
+                 "prefill cache")
+    for i, (a, b) in enumerate(zip(port["decode_logits"],
+                                   ref["decode_logits"])):
+        assert_close(a, b, tol, f"decode logits {i}")
+    assert_close(port["decode_cache"], ref["decode_cache"], tol,
+                 "decode cache")
