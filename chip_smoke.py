@@ -133,7 +133,21 @@ just before and read just after:
   (decode_32k, batch 128 reduced to 16; 17.2 GB), each output and cache
   bitwise equal to a direct ``lm_prefill`` / ``lm_decode_step``, the
   decode step's p50/p95 against its bound; then a 2-layer float32 cut
-  through both builders, card against the host CPU, within 1e-3 x max.
+  through both builders, card against the host CPU, within 1e-3 x max;
+- the cost model and the dry runs (phase 15): (a) ``launch/dryrun.py`` for
+  qwen2-0.5b x ``decode_32k`` on the production single-pod (16 x 16, 256
+  ranks) and multi-pod (2 x 16 x 16, 512) meshes of a ``fake`` process
+  group, fake tensors (nothing allocated), each cell in its own
+  subprocess with ``--device cuda`` and again with ``--device cpu``, all
+  four started together: chips, per-device FLOPs, HBM bytes, collectives
+  by kind and ``argument_bytes``, the two devices' FLOPs, collectives and
+  argument bytes equal (an operator counted differently is printed);
+  (b) ``launch/hlo_cost.py`` over one warm ``lm_decode_step`` of phase
+  10's qwen2-0.5b float32 engine shape (8 slots, max_len 512) on the card
+  with real tensors, its FLOPs and HBM bytes equal to the count on fake
+  CPU tensors of the same shapes, and its bound (FLOPs over the float32
+  rate outside the tensor cores, 2 x the FP32 lanes' rate, or bytes over
+  3.35 TB/s) beside phase 10's decode p50 and the weights' bytes bound.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -148,6 +162,7 @@ import ctypes
 import gc
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2816,6 +2831,161 @@ def sharded_serve_phase(tag, *, device="cuda", smoke=False):
     return out
 
 
+# -- phase 15: the cost model and the dry runs -------------------------------
+
+DRYRUN_CELL = ("qwen2-0.5b", "decode_32k")
+DRYRUN_MESHES = ("single", "multi")
+FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
+COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
+
+
+def dryrun_cells(tag, root, *, device="cuda", scale=16):
+    """(a) ``launch/dryrun.py`` for DRYRUN_CELL on the single- and
+    multi-pod meshes at edge ``scale`` (256 and 512 fake ranks at 16), each
+    cell in its own subprocess, all started together, with ``--device``
+    ``device`` and again with ``--device cpu``: fake tensors, nothing
+    allocated.  The counts are shape counts: the two devices' FLOPs,
+    collectives and memory must be equal; an operator that moves other
+    bytes on one device (it decomposes differently there) is printed.  A
+    failed cell raises."""
+    out = root / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               REPRO_DRYRUN_SCALE=str(scale))
+    devices = list(dict.fromkeys((device, "cpu")))
+    t0 = time.perf_counter()
+    procs = {(mesh, dev): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--device", dev, "--save-hlo",
+         "--out", str(out / dev)], env=env, cwd=root, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for mesh in DRYRUN_MESHES for dev in devices}
+    cells = {}
+    for (mesh, dev), p in procs.items():
+        _, err = p.communicate(timeout=600)
+        if p.returncode:
+            raise RuntimeError(f"dry run {arch} x {shape} x {mesh} on "
+                               f"{dev} failed:\n{err[-3000:]}")
+        stem = f"{arch}__{shape}__{mesh}"
+        cells[mesh, dev] = json.loads((out / dev / f"{stem}.json")
+                                      .read_text())
+        cells[mesh, dev]["ops"] = json.loads(
+            (out / dev / f"{stem}.ops.json").read_text())
+    wall = time.perf_counter() - t0
+    stats = {}
+    for mesh in DRYRUN_MESHES:
+        rec = cells[mesh, device]
+        la = rec["loop_aware"]
+        kinds = {k: int(v["count"]) for k, v in la["collectives"].items()}
+        assert rec["chips"] == scale * scale * (2 if mesh == "multi" else 1)
+        twin = cells[mesh, "cpu"]
+        for key in ("flops", "collectives"):
+            assert la[key] == twin["loop_aware"][key], (
+                mesh, key, la[key], twin["loop_aware"][key])
+        assert rec["memory"]["argument_bytes"] == \
+            twin["memory"]["argument_bytes"]
+        differ = {k: (rec["ops"].get(k), twin["ops"].get(k))
+                  for k in set(rec["ops"]) | set(twin["ops"])
+                  if rec["ops"].get(k) != twin["ops"].get(k)}
+        if differ:
+            print(f"[{tag}] phase 15 (a) {mesh}: operators counted "
+                  f"differently on fake {device} and fake CPU tensors "
+                  f"({device}, cpu): {differ}")
+        stats[mesh] = dict(chips=rec["chips"], flops=la["flops"],
+                           bytes_hbm=la["bytes_hbm"], collectives=kinds,
+                           collective_bytes=la["collective_bytes_total"],
+                           argument_bytes=rec["memory"]["argument_bytes"],
+                           temp_bytes=rec["memory"]["temp_bytes"],
+                           warnings=la["warnings"],
+                           lower_s=rec["timing"]["lower_s"],
+                           compile_s=rec["timing"]["compile_s"])
+        print(f"[{tag}] phase 15 (a) dry run {arch} x {shape} x {mesh}: "
+              f"chips {rec['chips']}, per-device FLOPs {la['flops']:.6e}, "
+              f"bytes_hbm {la['bytes_hbm']:.6e}, collectives {kinds} "
+              f"({la['collective_bytes_total']:.6e} B), argument_bytes "
+              f"{rec['memory']['argument_bytes']}, temp_bytes "
+              f"{rec['memory']['temp_bytes']} (fake {device} tensors; fake "
+              f"CPU: bytes_hbm {twin['loop_aware']['bytes_hbm']:.6e}, temp "
+              f"{twin['memory']['temp_bytes']}); build "
+              f"{rec['timing']['lower_s']:.2f}"
+              f" s, counted run {rec['timing']['compile_s']:.2f} s")
+    stats["wall_s"] = wall
+    return stats
+
+
+def decode_cost(cfg, model, device, slots, max_len):
+    """The cost model over one warm ``lm_decode_step`` of an engine of
+    ``slots`` x ``max_len`` (per-slot positions), on ``model``'s tensors."""
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models import transformer as lm
+
+    cache = lm.init_lm_cache(cfg, slots, max_len, torch.float32,
+                             device=device)
+    token = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    pos = torch.arange(slots, dtype=torch.int32, device=device) * 7 + 3
+    with torch.no_grad():
+        lm.lm_decode_step(cfg, model, token, cache, pos)  # warm
+        with hlo_cost.Counters() as c:
+            c.arguments(model, cache, token, pos)
+            c.outputs(lm.lm_decode_step(cfg, model, token, cache, pos))
+    return c
+
+
+def cost_model_phase(tag, serving_p50, *, device="cuda", smoke=False,
+                     slots=COST_SLOTS, max_len=COST_MAX_LEN):
+    """(b) the cost model on the card with real tensors: one warm
+    ``lm_decode_step`` of phase 10's qwen2-0.5b float32 engine shape,
+    its FLOPs and HBM bytes (and every operator's) equal to the same count
+    on fake CPU tensors of the same shapes; its bound, the larger of the
+    FLOPs over the float32 rate outside the tensor cores and the bytes
+    over the HBM rate, beside phase 10's measured p50 and the weights'
+    bytes bound."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import empty_model
+
+    cfg = get_config(SERVE_ARCH, smoke=smoke).with_(dtype="float32")
+    model, n_params = draw_model(tag, cfg, device)
+    card = decode_cost(cfg, model, device, slots, max_len)
+    del model
+    with FakeTensorMode():
+        fake = decode_cost(cfg, empty_model(cfg, "cpu"), "cpu", slots,
+                           max_len)
+    differ = sorted(k for k in set(card.by_op) | set(fake.by_op)
+                    if card.by_op.get(k) != fake.by_op.get(k))
+    if differ:
+        print(f"[{tag}] phase 15 (b) operators counted differently on "
+              f"{device} and on fake CPU tensors: "
+              + "; ".join(f"{k}: {card.by_op.get(k)} vs {fake.by_op.get(k)}"
+                          for k in differ))
+    assert (card.flops, card.bytes_hbm) == (fake.flops, fake.bytes_hbm), (
+        (card.flops, card.bytes_hbm), (fake.flops, fake.bytes_hbm), differ)
+    flops_ms = 1e3 * card.flops / FP32_FLOPS_S
+    bytes_ms = 1e3 * card.bytes_hbm / HBM_BYTES_S
+    bound_ms = max(flops_ms, bytes_ms)
+    weights_ms = decode_bound_ms(cfg, n_params)
+    mem = card.memory()
+    print(f"[{tag}] phase 15 (b) cost model, one warm lm_decode_step of "
+          f"{SERVE_ARCH} float32 ({slots} slots, max_len {max_len}) on "
+          f"{device}: FLOPs {card.flops:.6e}, bytes_hbm {card.bytes_hbm:.6e}"
+          f", {int(card.n_ops)} operators, equal to the fake CPU count "
+          f"(host-to-device copies apart: {card.transfer_bytes:.0f} B on "
+          f"{device}, {fake.transfer_bytes:.0f} B on the CPU); "
+          f"bound max({flops_ms:.4f} ms at {FP32_FLOPS_S:.4g} FLOP/s "
+          f"float32, {bytes_ms:.4f} ms at {HBM_BYTES_S:.4g} B/s) = "
+          f"{bound_ms:.4f} ms against phase 10's decode step p50 "
+          f"{serving_p50} ms and the weights' bytes bound {weights_ms:.4f} "
+          f"ms; memory {mem}")
+    return dict(flops=card.flops, bytes_hbm=card.bytes_hbm,
+                operators=int(card.n_ops),
+                transfer_bytes=card.transfer_bytes, flops_ms=flops_ms,
+                bytes_ms=bytes_ms, bound_ms=bound_ms,
+                weights_bound_ms=weights_ms, serving_p50_ms=serving_p50,
+                memory=mem)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3080,6 +3250,16 @@ def main() -> int:
     free_device()
     print(f"[{tag}] mesh path: {json.dumps(mesh_path)}")
     print(f"[{tag}] phase 14 wall {time.perf_counter() - t0:.2f} s; script "
+          f"wall so far {time.perf_counter() - t_script:.2f} s")
+
+    # -- phase 15: the cost model and the dry runs ---------------------------
+    t0 = time.perf_counter()
+    cost = {"dryrun": dryrun_cells(tag, root)}
+    cost["decode_step"] = cost_model_phase(
+        tag, serving["decode_step_ms_p50"])
+    free_device()
+    print(f"[{tag}] cost model: {json.dumps(cost)}")
+    print(f"[{tag}] phase 15 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")
 
     print(json.dumps({"kernels": [{

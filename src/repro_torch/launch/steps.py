@@ -227,9 +227,12 @@ def _sharded_train_step(cfg, shape, mesh, opt, rules_c, *, n_acc, remat,
                 out[k] = shd.constrain(g.to(torch.float32), master_sh[k])
         return l.detach(), out
 
-    def loss_and_grads(state: TrainState, batch: dict):
+    def loss_and_grads(state: TrainState, batch: dict, *, loop=range):
         """The step's loss (a plain scalar) and float32 gradients on the
-        masters' layout (the microbatches' mean), with no update."""
+        masters' layout (the microbatches' mean), with no update.
+        ``loop(n_acc)`` yields the microbatches to run: all of them, unless
+        the dry run's cost model runs one trip weighted by ``n_acc``
+        (``launch/dryrun.py``)."""
         if set(batch) != set(specs):
             raise ValueError(
                 f"the batch's inputs {sorted(batch)} are not the step's "
@@ -249,7 +252,7 @@ def _sharded_train_step(cfg, shape, mesh, opt, rules_c, *, n_acc, remat,
             p_shapes[k].shape, dtype=torch.float32, device_mesh=mesh,
             placements=master_sh[k].placements) for k in names}
         lsum = None
-        for i in range(n_acc):
+        for i in loop(n_acc):
             l, g = value_and_grad({k: put(t[i * mb:(i + 1) * mb], mb_sh[k])
                                    for k, t in batch.items()})
             for k, t in g.items():
@@ -260,8 +263,8 @@ def _sharded_train_step(cfg, shape, mesh, opt, rules_c, *, n_acc, remat,
             t.div_(n_acc)
         return _full(lsum / n_acc), grads
 
-    def train_step(state: TrainState, batch: dict):
-        l, grads = loss_and_grads(state, batch)
+    def train_step(state: TrainState, batch: dict, *, loop=range):
+        l, grads = loss_and_grads(state, batch, loop=loop)
         with implicit_replication():
             new_state, metrics = apply_updates(opt, state, grads)
         return new_state, dict({k: _full(v) for k, v in metrics.items()},
@@ -308,9 +311,9 @@ def _one_device_train_step(cfg, shape, mesh, opt, *, n_acc, remat, fsdp,
         return l.detach(), {k: (torch.zeros_like(p) if g is None else g)
                             for k, p, g in zip(names, plist, gs)}
 
-    def loss_and_grads(state: TrainState, batch: dict):
+    def loss_and_grads(state: TrainState, batch: dict, *, loop=range):
         """The step's loss and float32 gradients (the microbatches'
-        mean), with no update."""
+        mean), with no update; ``loop`` as on a ``DeviceMesh``."""
         if set(batch) != set(specs):
             raise ValueError(
                 f"the batch's inputs {sorted(batch)} are not the step's "
@@ -328,7 +331,7 @@ def _one_device_train_step(cfg, shape, mesh, opt, *, n_acc, remat, fsdp,
         grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for k, p in state.params.items()}
         lsum = torch.zeros((), dtype=torch.float32, device=device)
-        for i in range(n_acc):
+        for i in loop(n_acc):
             l, g = value_and_grad({k: t[i] for k, t in mbs.items()})
             for k, t in g.items():
                 grads[k].add_(t.to(torch.float32))
@@ -338,8 +341,8 @@ def _one_device_train_step(cfg, shape, mesh, opt, *, n_acc, remat, fsdp,
             t.div_(n_acc)
         return lsum / n_acc, grads
 
-    def train_step(state: TrainState, batch: dict):
-        l, grads = loss_and_grads(state, batch)
+    def train_step(state: TrainState, batch: dict, *, loop=range):
+        l, grads = loss_and_grads(state, batch, loop=loop)
         new_state, metrics = apply_updates(opt, state, grads)
         return new_state, dict(metrics, loss=l)
 

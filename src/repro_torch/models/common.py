@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..dist.sharding import whole_dim
@@ -42,8 +43,22 @@ def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` of ``table`` (an embedding).  A DTensor table sharded
     by rows (vocab over the model axis) is gathered first
     (``dist.sharding.whole_dim``): DTensor's ``aten.index.Tensor`` rule
-    does not hold for it."""
-    return whole_dim(table, 0)[idx.long()]
+    does not hold for it.  Where no gradient is taken (serving), each rank
+    reads the replicated table's rows of its own indices and the result
+    keeps the indices' layout: torch 2.11's rule rejects indices whose
+    batch dimension is split over two mesh axes, as ("pod", "data")
+    splits it on the multi-pod mesh."""
+    table = whole_dim(table, 0)
+    if (isinstance(idx, DTensor) and isinstance(table, DTensor)
+            and not torch.is_grad_enabled()
+            and all(p.is_replicate() for p in table.placements)):
+        rows = table.to_local()[idx.to_local().long()]
+        shape = tuple(idx.shape) + tuple(table.shape[1:])
+        return DTensor.from_local(
+            rows, idx.device_mesh, idx.placements, run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return table[idx.long()]
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float,

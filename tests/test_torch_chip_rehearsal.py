@@ -1,12 +1,13 @@
-"""``chip_smoke.py``'s phases 12, 13 and 14 rehearsed on the CPU at SMOKE
-size: the functions the card runs at full width (the SSM and hybrid
-engines under load with their checks (a) and (b), whisper's streams and
-its host check; the training launcher with its injected failure, the
-card-vs-CPU cut, and llama3.2-1b's trainer, checkpoint and compression;
-the mesh path's sharded train step and serving builders on a gloo group
-of one rank), with ``device="cpu"``, so that a fault in the script shows
-before a chip run.  Device metrics (launches per tick, peak memory) are
-None here."""
+"""``chip_smoke.py``'s phases 12 to 15 rehearsed on the CPU at SMOKE size:
+the functions the card runs at full width (the SSM and hybrid engines
+under load with their checks (a) and (b), whisper's streams and its host
+check; the training launcher with its injected failure, the card-vs-CPU
+cut, and llama3.2-1b's trainer, checkpoint and compression; the mesh
+path's sharded train step and serving builders on a gloo group of one
+rank; the dry runs at edge 4 and the cost model's count of a decode step
+on real against fake tensors), with ``device="cpu"``, so that a fault in
+the script shows before a chip run.  Device metrics (launches per tick,
+peak memory) are None here."""
 import sys
 from pathlib import Path
 
@@ -76,3 +77,17 @@ def test_phase14_mesh_path_at_world_size_one():
     assert serve["peak_device_bytes"] is None
     assert serve["decode_steps"] == 4
     assert max(serve["cut_errs"]) == 0.0
+
+
+def test_phase15_dry_runs_and_cost_model():
+    """(a) both meshes' dry runs at edge 4 (16 and 32 fake ranks) in
+    subprocesses; (b) the cost model on real CPU tensors equal to its count
+    on fake ones, with the bound beside a p50 handed in."""
+    cells = cs.dryrun_cells("cpu", ROOT, device="cpu", scale=4)
+    assert [cells[m]["chips"] for m in cs.DRYRUN_MESHES] == [16, 32]
+    assert cells["single"]["argument_bytes"] == 13_131_984_260
+    assert cells["multi"]["flops"] == cells["single"]["flops"] / 2
+    cost = cs.cost_model_phase("cpu", 1.0, device="cpu", smoke=True)
+    assert cost["flops"] > 0 and cost["bytes_hbm"] > 0
+    assert cost["bound_ms"] == max(cost["flops_ms"], cost["bytes_ms"])
+    assert cost["memory"]["alias_bytes"] > 0  # the cache, written in place

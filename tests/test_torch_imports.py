@@ -71,7 +71,12 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.launch.train",
                                     "repro_torch.launch.mesh",
                                     "repro_torch.dist",
-                                    "repro_torch.dist.sharding"])
+                                    "repro_torch.dist.sharding",
+                                    "repro_torch.launch.hlo_cost",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.dryrun_all",
+                                    "repro_torch.kernels.minplus.ref",
+                                    "repro_torch.kernels.place.ref"])
 def test_service_obs_and_dag_import_without_jax(module):
     code = (
         "import sys, importlib\n"

@@ -92,6 +92,54 @@ def test_train_steps_match_reference(arch, n_acc, synthetic):
         for f in ("params", "m", "v")})
 
 
+def test_moe_embed_spread_is_adamw_on_near_zero_gradients():
+    """deepseek-moe-16b's ``embed`` leaf lies 2.1e-4 x max from the
+    reference's after one step on one device (5.5e-4 after two, the spread
+    ``test_torch_sharded_step.py`` widens by), past 1e-4 x max, though the
+    step's gradient agrees: its m and v (0.1 g and 0.05 g**2 after one
+    step) lie within 1e-5 x max on every leaf.  The first update is
+    lr * g / (|g| + eps), whose slope lr * eps / (|g| + eps)**2 turns a
+    float32 rounding of a near-cancelling gradient sum (|g| near eps =
+    1e-8; three quarters of the tied table's gradient lies below 1e-7) into
+    a visible step.  So every entry off by more than 1e-4 x max has |g| at
+    most 1e-6: the summation order, not a fault (the sharded test's state
+    and batch: seed 0, n_acc 2, 4 x 32 tokens)."""
+    arch = "deepseek-moe-16b"
+    rcfg, tcfg = RC.get_config(arch, smoke=True), TC.get_config(arch, smoke=True)
+    rshape = R_Shape("s", "train", seq_len=32, global_batch=4)
+    tshape = ShapeConfig("s", "train", seq_len=32, global_batch=4)
+    rb = R_build(rcfg, rshape, R_mesh(1, 1), R_Opt(**OPT), n_acc=2,
+                 masked=True)
+    tb = build_train_step(tcfg, tshape, make_local_mesh(1, 1, device="cpu"),
+                          OptConfig(**OPT), n_acc=2, masked=True)
+    rstate = R_init(rcfg, rb)
+    tstate = state_from_reference(tcfg, jax.tree.map(np.asarray, rstate),
+                                  device="cpu")
+    batch = batches(rcfg, rshape, True, n=1)[0]
+    rstate, _ = rb.fn(rstate, batch)
+    tstate, _ = tb.fn(tstate, batch)
+    got = state_to_numpy(tstate)
+    want = {f: jax.tree.map(np.asarray, getattr(rstate, f))
+            for f in ("params", "m", "v")}
+    spread = {}
+    for path, p_ref in jax.tree_util.tree_flatten_with_path(want["params"])[0]:
+        leaf = {}
+        for f in ("params", "m", "v"):
+            node, ref = got[f], want[f]
+            for k in path:
+                node, ref = node[k.key], ref[k.key]
+            leaf[f] = (np.asarray(node, np.float64), np.asarray(ref, np.float64))
+        for f in ("m", "v"):
+            a, b = leaf[f]
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), (f, path)
+        a, b = leaf["params"]
+        off = np.abs(a - b) > 1e-4 * np.abs(b).max()
+        g = np.abs(leaf["m"][1]) / (1 - 0.9)
+        assert (g[off] <= 1e-6).all(), (path, g[off].max())
+        spread[jax.tree_util.keystr(path)] = np.abs(a - b).max() / np.abs(b).max()
+    assert spread["['embed']"] > 1e-4, spread["['embed']"]
+
+
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "zamba2-7b"])
 def test_bfloat16_step_casts_every_leaf(arch):
     """Under a bfloat16 config the step's compute copy is bfloat16 in every
