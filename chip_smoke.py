@@ -147,7 +147,15 @@ just before and read just after:
   with real tensors, its FLOPs and HBM bytes equal to the count on fake
   CPU tensors of the same shapes, and its bound (FLOPs over the float32
   rate outside the tensor cores, 2 x the FP32 lanes' rate, or bytes over
-  3.35 TB/s) beside phase 10's decode p50 and the weights' bytes bound.
+  3.35 TB/s) beside phase 10's decode p50 and the weights' bytes bound;
+  (c) ``launch/dryrun.py`` for llama3.2-1b x ``train_4k`` at full width
+  and depth (sequence parallel, 2 microbatches, the sharded train step's
+  backward included) on the same two meshes, fake ``cuda`` and fake
+  ``cpu`` tensors, four subprocesses started together at the start of
+  phase 15 (after phase 14's timings) and run on the host beside (a)
+  and (b): every cell exits 0,
+  FLOPs, collectives and ``argument_bytes`` equal across the two devices;
+  per-device FLOPs, bytes, collectives and memory printed.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -157,6 +165,7 @@ power limit; and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import gc
@@ -2834,45 +2843,76 @@ def sharded_serve_phase(tag, *, device="cuda", smoke=False):
 # -- phase 15: the cost model and the dry runs -------------------------------
 
 DRYRUN_CELL = ("qwen2-0.5b", "decode_32k")
+TRAIN_DRYRUN_CELL = ("llama3.2-1b", "train_4k")  # phase 15 (c)
+TRAIN_DRYRUN_TIMEOUT_S = 600  # from its start in phase 15
 DRYRUN_MESHES = ("single", "multi")
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
+_CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
 
 
-def dryrun_cells(tag, root, *, device="cuda", scale=16):
-    """(a) ``launch/dryrun.py`` for DRYRUN_CELL on the single- and
-    multi-pod meshes at edge ``scale`` (256 and 512 fake ranks at 16), each
-    cell in its own subprocess, all started together, with ``--device``
-    ``device`` and again with ``--device cpu``: fake tensors, nothing
-    allocated.  The counts are shape counts: the two devices' FLOPs,
-    collectives and memory must be equal; an operator that moves other
-    bytes on one device (it decomposes differently there) is printed.  A
-    failed cell raises."""
-    out = root / "build" / "chip_smoke_dryrun"
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+atexit.register(_stop, _CHILDREN)
+
+
+def start_dryruns(root, cell, sub, *, device="cuda", scale=16):
+    """``launch/dryrun.py`` for ``cell`` on the single- and multi-pod
+    meshes at edge ``scale`` (256 and 512 fake ranks at 16), with
+    ``--device`` ``device`` and again with ``--device cpu``, each in its
+    own subprocess, all started now; fake tensors, nothing allocated.
+    Returns the running cells for ``collect_dryruns``."""
+    out = root / "build" / "chip_smoke_dryrun" / sub
     shutil.rmtree(out, ignore_errors=True)
-    arch, shape = DRYRUN_CELL
+    out.mkdir(parents=True)
+    arch, shape = cell
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
-               REPRO_DRYRUN_SCALE=str(scale))
-    devices = list(dict.fromkeys((device, "cpu")))
-    t0 = time.perf_counter()
-    procs = {(mesh, dev): subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", mesh, "--device", dev, "--save-hlo",
-         "--out", str(out / dev)], env=env, cwd=root, text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        for mesh in DRYRUN_MESHES for dev in devices}
+               REPRO_DRYRUN_SCALE=str(scale), OMP_NUM_THREADS="1")
+    procs = {}
+    for mesh in DRYRUN_MESHES:
+        for dev in dict.fromkeys((device, "cpu")):
+            log = out / f"{mesh}_{dev}.log"
+            with open(log, "w") as f:
+                procs[mesh, dev] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--device", dev, "--save-hlo", "--out", str(out / dev)],
+                    env=env, cwd=root, stdout=f, stderr=subprocess.STDOUT)
+            _CHILDREN.append(procs[mesh, dev])
+    return dict(cell=cell, out=out, device=device, scale=scale, procs=procs,
+                t0=time.perf_counter())
+
+
+def collect_dryruns(tag, label, run, *, timeout):
+    """Wait for the cells of ``start_dryruns`` and check them.  The counts
+    are shape counts: the two devices' FLOPs, collectives and argument
+    bytes must be equal; an operator that moves other bytes on one device
+    (it decomposes differently there) is printed.  A failed cell raises
+    (the others are stopped)."""
+    (arch, shape), out, device = run["cell"], run["out"], run["device"]
+    scale = run["scale"]
     cells = {}
-    for (mesh, dev), p in procs.items():
-        _, err = p.communicate(timeout=600)
-        if p.returncode:
-            raise RuntimeError(f"dry run {arch} x {shape} x {mesh} on "
-                               f"{dev} failed:\n{err[-3000:]}")
-        stem = f"{arch}__{shape}__{mesh}"
-        cells[mesh, dev] = json.loads((out / dev / f"{stem}.json")
-                                      .read_text())
-        cells[mesh, dev]["ops"] = json.loads(
-            (out / dev / f"{stem}.ops.json").read_text())
-    wall = time.perf_counter() - t0
+    try:
+        for (mesh, dev), p in run["procs"].items():
+            left = max(1.0, timeout - (time.perf_counter() - run["t0"]))
+            p.wait(timeout=left)
+            if p.returncode:
+                log = (out / f"{mesh}_{dev}.log").read_text()
+                raise RuntimeError(f"dry run {arch} x {shape} x {mesh} on "
+                                   f"{dev} failed:\n{log[-3000:]}")
+            stem = f"{arch}__{shape}__{mesh}"
+            cells[mesh, dev] = json.loads((out / dev / f"{stem}.json")
+                                          .read_text())
+            cells[mesh, dev]["ops"] = json.loads(
+                (out / dev / f"{stem}.ops.json").read_text())
+    finally:
+        _stop(run["procs"].values())
+    wall = time.perf_counter() - run["t0"]
     stats = {}
     for mesh in DRYRUN_MESHES:
         rec = cells[mesh, device]
@@ -2880,38 +2920,55 @@ def dryrun_cells(tag, root, *, device="cuda", scale=16):
         kinds = {k: int(v["count"]) for k, v in la["collectives"].items()}
         assert rec["chips"] == scale * scale * (2 if mesh == "multi" else 1)
         twin = cells[mesh, "cpu"]
+        differ = {k: (rec["ops"].get(k), twin["ops"].get(k))
+                  for k in set(rec["ops"]) | set(twin["ops"])
+                  if rec["ops"].get(k) != twin["ops"].get(k)}
+        if differ:
+            print(f"[{tag}] phase 15 {label} {mesh}: operators counted "
+                  f"differently on fake {device} and fake CPU tensors "
+                  f"({device}, cpu): {differ}")
+        if rec["collectives"] != twin["collectives"]:
+            print(f"[{tag}] phase 15 {label} {mesh}: the largest "
+                  f"collectives on fake {device} tensors "
+                  f"{rec['collectives']['top_ops']}; on fake CPU tensors "
+                  f"{twin['collectives']['top_ops']}")
         for key in ("flops", "collectives"):
             assert la[key] == twin["loop_aware"][key], (
                 mesh, key, la[key], twin["loop_aware"][key])
         assert rec["memory"]["argument_bytes"] == \
             twin["memory"]["argument_bytes"]
-        differ = {k: (rec["ops"].get(k), twin["ops"].get(k))
-                  for k in set(rec["ops"]) | set(twin["ops"])
-                  if rec["ops"].get(k) != twin["ops"].get(k)}
-        if differ:
-            print(f"[{tag}] phase 15 (a) {mesh}: operators counted "
-                  f"differently on fake {device} and fake CPU tensors "
-                  f"({device}, cpu): {differ}")
         stats[mesh] = dict(chips=rec["chips"], flops=la["flops"],
                            bytes_hbm=la["bytes_hbm"], collectives=kinds,
                            collective_bytes=la["collective_bytes_total"],
                            argument_bytes=rec["memory"]["argument_bytes"],
                            temp_bytes=rec["memory"]["temp_bytes"],
+                           peak_bytes=rec["memory"]["peak_bytes"],
+                           n_acc=rec["n_acc"], mode=rec["mode"],
                            warnings=la["warnings"],
                            lower_s=rec["timing"]["lower_s"],
                            compile_s=rec["timing"]["compile_s"])
-        print(f"[{tag}] phase 15 (a) dry run {arch} x {shape} x {mesh}: "
-              f"chips {rec['chips']}, per-device FLOPs {la['flops']:.6e}, "
+        print(f"[{tag}] phase 15 {label} dry run {arch} x {shape} x {mesh}: "
+              f"chips {rec['chips']}, n_acc {rec['n_acc']}, mode "
+              f"{rec['mode']}, per-device FLOPs {la['flops']:.6e}, "
               f"bytes_hbm {la['bytes_hbm']:.6e}, collectives {kinds} "
               f"({la['collective_bytes_total']:.6e} B), argument_bytes "
               f"{rec['memory']['argument_bytes']}, temp_bytes "
-              f"{rec['memory']['temp_bytes']} (fake {device} tensors; fake "
+              f"{rec['memory']['temp_bytes']}, peak_bytes "
+              f"{rec['memory']['peak_bytes']} (fake {device} tensors; fake "
               f"CPU: bytes_hbm {twin['loop_aware']['bytes_hbm']:.6e}, temp "
               f"{twin['memory']['temp_bytes']}); build "
               f"{rec['timing']['lower_s']:.2f}"
               f" s, counted run {rec['timing']['compile_s']:.2f} s")
     stats["wall_s"] = wall
     return stats
+
+
+def dryrun_cells(tag, root, *, device="cuda", scale=16):
+    """(a) ``launch/dryrun.py`` for DRYRUN_CELL on both meshes
+    (``start_dryruns``), checked by ``collect_dryruns``."""
+    run = start_dryruns(root, DRYRUN_CELL, "decode", device=device,
+                        scale=scale)
+    return collect_dryruns(tag, "(a)", run, timeout=600)
 
 
 def decode_cost(cfg, model, device, slots, max_len):
@@ -3254,10 +3311,15 @@ def main() -> int:
 
     # -- phase 15: the cost model and the dry runs ---------------------------
     t0 = time.perf_counter()
+    # (c)'s train cells run on the host beside (a) and (b), after phase
+    # 14's host-clock timings
+    train_dryrun = start_dryruns(root, TRAIN_DRYRUN_CELL, "train")
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
     free_device()
+    cost["train_dryrun"] = collect_dryruns(tag, "(c)", train_dryrun,
+                                           timeout=TRAIN_DRYRUN_TIMEOUT_S)
     print(f"[{tag}] cost model: {json.dumps(cost)}")
     print(f"[{tag}] phase 15 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")

@@ -338,6 +338,65 @@ def batch_only(t):
     return t.redistribute(t.device_mesh, pl)
 
 
+class _Relaid(torch.autograd.Function):
+    """``fwd(t)``, whose backward lays the gradient out with ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, t, fwd, bwd):
+        ctx.bwd = bwd
+        out = fwd(t)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g), None, None
+
+
+def _same(t):
+    return t
+
+
+def _relaid(t, fwd, bwd):
+    if not isinstance(t, DTensor):
+        return t
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return fwd(t)
+    return _Relaid.apply(t, fwd, bwd)
+
+
+def gathered(t, dim: int):
+    """``whole_dim(t, dim)``, whose gradient goes back in the layout it
+    arrives in (DTensor's own redistribute would lay it out as ``t``
+    again).  For an operand gathered only so that a product can fold
+    ``dim`` into the dimension before it: the gradient the product's
+    backward gives then reaches the layers before it as it would without
+    the gather.  A plain tensor passes unchanged."""
+    return _relaid(t, lambda x: whole_dim(x, dim), _same)
+
+
+def grad_whole_dim(t, dim: int, parts: int = 1):
+    """``t`` itself, whose gradient is laid out by ``whole_dim(g, dim,
+    parts)`` on its way back.  Placed after an operation whose backward
+    reshapes the gradient along ``dim``: a reshape that flattens ``parts``
+    rows into ``dim`` (its backward unflattens the gradient, which a
+    product may hand back sharded over more ways than there are rows; the
+    forward's ``whole_dim`` gathers only the forward operand), or a
+    product that folds ``dim`` into the one before it.  A plain tensor,
+    or one that records no gradient, passes unchanged."""
+    return _relaid(t, _same, lambda g: whole_dim(g, dim, parts))
+
+
+def grad_batch_only(t):
+    """``t`` itself, whose gradient is laid out by ``batch_only`` on its
+    way back (a Partial sum reduced, every other placement but the
+    batch's made Replicate).  Placed after an in-place write into part of
+    ``t``: the write's backward copies a gradient into a slice of ``t``'s
+    gradient, which DTensor cannot do into a Partial one ("redistribute
+    from S(1) to P(sum)").  A plain tensor, or one that records no
+    gradient, passes unchanged."""
+    return _relaid(t, _same, batch_only)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts (and of matching trees)."""
     if isinstance(tree, dict):

@@ -183,10 +183,16 @@ def count_step(built, args) -> tuple:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
-             *, save_hlo: bool = False, device=None) -> dict:
+             *, save_hlo: bool = False, device=None, cfg=None,
+             fsdp=None) -> dict:
+    """Count one cell and write its JSON.  ``cfg`` (default: ``arch``'s
+    production config) runs a cut of the model on the cell's mesh, shape,
+    ``n_acc`` and mode; ``fsdp`` sets a train step's ZeRO-3 choice (None:
+    the step's own rule on ``cfg``'s parameter count), which a cut of a
+    model that needs it keeps."""
     t0 = time.time()
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     shape = SHAPES[shape_name]
     if shape_name == "long_500k" and arch not in LONG_CONTEXT_OK:
         raise SystemExit(f"{arch} x long_500k is a documented skip (DESIGN.md §6)")
@@ -195,6 +201,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
     if shape.kind == "train":
         kw["n_acc"] = train_accumulation(arch)
         kw["mode"] = train_mode(arch)
+        kw["fsdp"] = fsdp
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():

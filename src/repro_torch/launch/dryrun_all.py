@@ -32,6 +32,8 @@ def main(argv=None):
     ap.add_argument("--timeout", type=int, default=1800)
     ap.add_argument("--device", default=None,
                     help="passed to each cell (cuda unless cpu is asked for)")
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="passed to each cell: its operators by name")
     args = ap.parse_args(argv)
 
     meshes = args.meshes.split(",")
@@ -54,7 +56,8 @@ def main(argv=None):
         cmd = [
             sys.executable, "-m", "repro_torch.launch.dryrun",
             "--arch", arch, "--shape", shape, "--mesh", mesh, "--out", args.out,
-        ] + (["--device", args.device] if args.device else [])
+        ] + (["--device", args.device] if args.device else []) + (
+            ["--save-hlo"] if args.save_hlo else [])
         print(f"[{i+1}/{len(todo)}] {stem} ...", flush=True)
         try:
             p = subprocess.run(

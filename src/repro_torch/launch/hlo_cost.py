@@ -50,7 +50,13 @@ Per operator:
   operators likewise), bytes = the local operand's bytes.  What maps to
   none of them (the ``scatter_``/``broadcast_`` of a ``distribute_tensor``
   of a plain input) is counted in ``warnings`` by name, not dropped.  The
-  mode counts them itself (no ``CommDebugMode``);
+  mode counts them itself (no ``CommDebugMode``).  A redistribute from one
+  sharded dimension to another (DTensor's ``shard_dim_alltoall``) counts
+  as one all-to-all of its input on every device: a CUDA mesh runs it as
+  one operator (``_dtensor.shard_dim_alltoall``), a CPU mesh as an
+  all-gather and a chunk (gloo has no all-to-all), and neither inner
+  form is counted, so that a cell counts alike on fake ``cuda`` and fake
+  ``cpu`` tensors;
 - transcendentals: the elements of exp/log/tanh/sigmoid/rsqrt/erf-class
   results (``silu``, ``softmax`` and ``gelu`` included);
 - memory (``memory()``): the arguments' local bytes, the outputs' and the
@@ -209,6 +215,20 @@ def _host_work():
     return out
 
 
+def _alltoall_sites():
+    """The modules that bind DTensor's ``shard_dim_alltoall`` (its own and
+    the placements' that call it), to count it as one all-to-all."""
+    import importlib
+
+    out = []
+    for mod in ("torch.distributed.tensor._collective_utils",
+                "torch.distributed.tensor.placement_types"):
+        m = importlib.import_module(mod)
+        if "shard_dim_alltoall" in vars(m):
+            out.append(m)
+    return out
+
+
 class Counters(TorchDispatchMode):
     """The counters, as a dispatch mode: ``with Counters() as c: step()``."""
 
@@ -257,6 +277,24 @@ class Counters(TorchDispatchMode):
             setattr(cls, name, staticmethod(paused)
                     if isinstance(inner, staticmethod) else paused)
             self._restore.append((cls, name, inner))
+        for mod in _alltoall_sites():
+            inner = vars(mod)["shard_dim_alltoall"]
+
+            def alltoall(t, gather_dim, shard_dim, mesh, mesh_dim, _fn=inner):
+                self.paused += 1
+                try:
+                    out = _fn(t, gather_dim, shard_dim, mesh, mesh_dim)
+                finally:
+                    self.paused -= 1
+                if not self.paused:
+                    self.n_ops += self.weight
+                    self._collective("all-to-all",
+                                     "_dtensor.shard_dim_alltoall", [t], out)
+                    self._track(out)
+                return out
+
+            setattr(mod, "shard_dim_alltoall", alltoall)
+            self._restore.append((mod, "shard_dim_alltoall", inner))
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -338,6 +376,20 @@ class Counters(TorchDispatchMode):
         self._track(out)
         return out
 
+    def _collective(self, kind, label, ins, out):
+        """One collective of ``kind`` on the local operands ``ins``."""
+        w = self.weight
+        nb = sum(t.numel() * t.element_size() for t in ins)
+        self.coll[kind]["count"] += w
+        self.coll[kind]["bytes"] += w * nb
+        self.coll_once[kind]["count"] += 1
+        self.coll_once[kind]["bytes"] += nb
+        shapes = ", ".join(f"{str(t.dtype).removeprefix('torch.')}"
+                           f"{list(t.shape)}" for t in ins)
+        self.top.append((w * nb, nb, kind, f"{label}({shapes})"[:200]))
+        self.bytes_hbm += w * (nb + sum(
+            t.numel() * t.element_size() for t in _tensors(out)))
+
     def _count(self, func, args, kwargs, out):
         w = self.weight
         packet = func._overloadpacket
@@ -347,20 +399,11 @@ class Counters(TorchDispatchMode):
                 return
             self.n_ops += w
             ins = _tensors((args, kwargs))
-            nb = sum(t.numel() * t.element_size() for t in ins)
             kind = _KIND.get(name)
             if kind is None:
                 self.unmapped[name] += 1
                 return
-            self.coll[kind]["count"] += w
-            self.coll[kind]["bytes"] += w * nb
-            self.coll_once[kind]["count"] += 1
-            self.coll_once[kind]["bytes"] += nb
-            shapes = ", ".join(f"{str(t.dtype).removeprefix('torch.')}"
-                               f"{list(t.shape)}" for t in ins)
-            self.top.append((w * nb, nb, kind, f"{func}({shapes})"[:200]))
-            self.bytes_hbm += w * (nb + sum(
-                t.numel() * t.element_size() for t in _tensors(out)))
+            self._collective(kind, str(func), ins, out)
             return
         if func.namespace == "prim":
             return

@@ -19,7 +19,7 @@ from torch import nn
 
 from torch.distributed.tensor import DTensor
 
-from ..dist.sharding import constrain, local_write, whole_dim
+from ..dist.sharding import constrain, grad_whole_dim, local_write, whole_dim
 from .common import apply_rope, dtype_of, einsum, matmul, recompute
 
 NEG_INF = -1e30
@@ -82,7 +82,10 @@ class Attention(nn.Module):
         out = _chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                                  kv_chunk=kv_chunk)
         B, S = x.shape[:2]
-        return matmul(out.reshape(B, S, -1), self.wo), (k, v)
+        # the gradient from ``wo`` splits back into whole heads
+        # (``grad_whole_dim``)
+        out = grad_whole_dim(out.reshape(B, S, -1), -1, self.cfg.n_heads)
+        return matmul(out, self.wo), (k, v)
 
     def decode(self, x, cache, pos, *, rope: bool = True):
         """One-token decode. x: (B, 1, d); cache k/v: (B, Smax, nkv, hd);
@@ -244,7 +247,10 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     v_ch = v.reshape(B, nkc, kv_chunk, nkv, hd)
     outs = [recompute(_per_q_chunk, q_ch[:, qi], k_ch, v_ch, qi, causal)
             for qi in range(nqc)]
-    out = torch.cat(outs, dim=1).reshape(B, Sq, nq, hd)
+    # the gradient splits back into (nkv, g) along whole shards
+    # (``grad_whole_dim``)
+    out = grad_whole_dim(torch.cat(outs, dim=1).reshape(B, Sq, nq, hd), 2,
+                         nkv)
     return out.to(v.dtype)
 
 

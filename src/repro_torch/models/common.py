@@ -17,10 +17,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import whole_dim
+from ..dist.sharding import gathered, grad_whole_dim, whole_dim
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -28,8 +28,22 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in the promoted dtype, as ``jnp.matmul`` computes it."""
+    """``a @ b`` in the promoted dtype, as ``jnp.matmul`` computes it.
+
+    ``torch.matmul`` folds a 3-D ``a``'s two leading dimensions into one
+    (a view) before a 2-D ``b``, and its backward folds the gradient so.
+    With the second sharded, as sequence parallelism (or DTensor's own
+    choice of layout) shards it, torch 2.11's DTensor cannot fold them
+    ("Attempted to flatten multiple dimensions"); later versions fold
+    them into strided shards.  So a DTensor ``a`` is gathered along its
+    dimension 1 (``gathered``: the all-gather before a product of
+    sequence parallelism, whose gradient goes back as the product gives
+    it), and so is the gradient that reaches the product's backward
+    (``grad_whole_dim``), on every torch version and mesh."""
     dt = torch.promote_types(a.dtype, b.dtype)
+    if b.ndim == 2 and a.ndim == 3 and isinstance(a, DTensor):
+        out = torch.matmul(gathered(a, 1).to(dt), b.to(dt))
+        return grad_whole_dim(out, 1)
     return torch.matmul(a.to(dt), b.to(dt))
 
 
@@ -43,16 +57,25 @@ def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` of ``table`` (an embedding).  A DTensor table sharded
     by rows (vocab over the model axis) is gathered first
     (``dist.sharding.whole_dim``): DTensor's ``aten.index.Tensor`` rule
-    does not hold for it.  Where no gradient is taken (serving), each rank
-    reads the replicated table's rows of its own indices and the result
-    keeps the indices' layout: torch 2.11's rule rejects indices whose
-    batch dimension is split over two mesh axes, as ("pod", "data")
-    splits it on the multi-pod mesh."""
+    does not hold for it.  Where no gradient is taken (serving), or where
+    two mesh axes split the indices, each rank reads the replicated
+    table's rows of its own indices and the result keeps the indices'
+    layout; the table's gradient is then each rank's sum over its own
+    indices: a Partial sum over the mesh axes that split them, the same
+    on every rank of the others (``local_rows``).  Torch 2.11's rules
+    reject indices whose batch dimension is split over two mesh axes, as
+    ("pod", "data") splits it on the multi-pod mesh, and the gradient of
+    indices split over batch and sequence (sequence parallelism:
+    ``aten.index_put``, "Shard dim -1 ... must be normalized")."""
     table = whole_dim(table, 0)
     if (isinstance(idx, DTensor) and isinstance(table, DTensor)
-            and not torch.is_grad_enabled()
-            and all(p.is_replicate() for p in table.placements)):
-        rows = table.to_local()[idx.to_local().long()]
+            and all(p.is_replicate() for p in table.placements)
+            and (not torch.is_grad_enabled() or sum(
+                isinstance(p, Shard) for p in idx.placements) > 1)):
+        local = table.to_local(grad_placements=[
+            Partial() if isinstance(p, Shard) else Replicate()
+            for p in idx.placements])
+        rows = local[idx.to_local().long()]  # local_rows
         shape = tuple(idx.shape) + tuple(table.shape[1:])
         return DTensor.from_local(
             rows, idx.device_mesh, idx.placements, run_check=False,

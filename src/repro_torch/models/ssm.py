@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import batch_only
+from ..dist.sharding import batch_only, grad_batch_only
 from .common import dtype_of, einsum, matmul, softplus
 
 SCAN_CHUNK = 512  # sequence chunk for the chunked recurrence (memory knob)
@@ -102,7 +102,9 @@ def _chunked_assoc_scan(a, b, h0=None):
         ac, bc = a[:, c * chunk:(c + 1) * chunk], b[:, c * chunk:(c + 1) * chunk]
         bc = bc.clone()
         bc[:, 0] = bc[:, 0] + ac[:, 0] * h
-        hc = _assoc_scan(ac, bc)
+        # the write's backward needs a gradient that is no Partial sum
+        # (``grad_batch_only``)
+        hc = _assoc_scan(ac, grad_batch_only(bc))
         h = hc[:, -1]
         out.append(hc)
     return torch.cat(out, dim=1), h

@@ -23,7 +23,16 @@ attention's scores and values over the whole cache, the LM head) is one
 the same shapes; each count is 2 x M x N x K, an integer far below 2**53,
 summed exactly in float64 by both.  Only the order of the sums may differ.
 The HBM bytes are not compared: the reference counts XLA's fused program,
-the port the unfused one; the test prints the ratio."""
+the port the unfused one; the test prints the ratio.
+
+Train cells whose backward splits heads unevenly over the model axis, or
+meets a Partial gradient in Mamba-1's chunked scan, each a cut of its
+model (``tests/torch_dryrun_worker.py``) started with the others:
+llama3.2-1b and qwen2-0.5b SMOKE ``train_4k`` at edge 4 (sequence
+parallel; 4 and 2 q heads over 4 ways), falcon-mamba-7b SMOKE at edge 16
+and phi3.5-moe SMOKE with its 32 q and 8 kv heads (d_model 256) at edge
+16 under ZeRO-3, as its production cell runs.  Each must run and write
+the reference's JSON keys."""
 import json
 import os
 import pathlib
@@ -39,6 +48,15 @@ MATMULS = {"aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm",
            "aten._scaled_mm", "aten._scaled_dot_product_efficient_attention",
            "aten._scaled_dot_product_flash_attention",
            "aten._scaled_dot_product_cudnn_attention"}
+# arch: (mesh edge, the cut of its SMOKE config: ModelConfig fields, and
+# the train step's ZeRO-3 choice where the production cell makes it)
+TRAIN_CUTS = {
+    "llama3.2-1b": ("4", {}),
+    "qwen2-0.5b": ("4", {}),
+    "falcon-mamba-7b": ("16", {}),
+    "phi3.5-moe-42b-a6.6b": ("16", dict(n_heads=32, n_kv_heads=8,
+                                        d_model=256, fsdp=True)),
+}
 CONVS = {"aten.convolution", "aten._convolution", "aten.convolution_backward",
          "aten.cudnn_convolution", "aten.convolution_overrideable",
          "aten._slow_conv2d_forward"}
@@ -62,6 +80,11 @@ def runs(tmp_path_factory):
         "ref1": ("1", ref + ["--mesh", "single", "--save-hlo",
                              "--out", str(out / "ref1")]),
     }
+    worker = str(ROOT / "tests" / "torch_dryrun_worker.py")
+    for arch, (scale, cut) in TRAIN_CUTS.items():
+        jobs[f"cut:{arch}"] = (scale, [
+            sys.executable, worker, arch, "train_4k", "single",
+            json.dumps(cut), str(out / "cuts")])
     procs = {}
     for name, (scale, cmd) in jobs.items():
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -73,6 +96,9 @@ def runs(tmp_path_factory):
     logs = {}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
+        if name.startswith("cut:"):  # each cut's test reports its own
+            logs[name] = (p.returncode, stderr)
+            continue
         assert p.returncode == 0, f"{name}:\n{stderr[-3000:]}"
         logs[name] = stdout
     return out, logs
@@ -160,3 +186,17 @@ def test_sweep_records_no_failure(runs):
     out, logs = runs
     assert json.loads((out / "port4" / "_failures.json").read_text()) == []
     assert "done: 1/1 cells OK" in logs["sweep"]
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_CUTS))
+def test_train_cells_where_the_backward_splits_unevenly(runs, arch):
+    out, logs = runs
+    rc, stderr = logs[f"cut:{arch}"]
+    assert rc == 0, stderr[-3000:]
+    cell = json.loads((out / "cuts" / f"{arch}__train_4k__single.json")
+                      .read_text())
+    assert key_tree(cell) == key_tree(load(runs, "ref4"))
+    edge = int(TRAIN_CUTS[arch][0])
+    assert (cell["kind"], cell["chips"]) == ("train", edge * edge)
+    assert cell["loop_aware"]["flops"] > 0
+    assert cell["cost"]["flops"] == cell["loop_aware"]["flops"]

@@ -191,6 +191,21 @@ def test_dtensor_view_moves_nothing(mesh_counts):
     assert r["bytes_hbm"] == 0 and r["flops"] == 0
 
 
+def test_shard_to_shard_counts_one_all_to_all(mesh_counts):
+    """A redistribute between two sharded dimensions is one all-to-all of
+    the local shard, (4, 128) float32, whatever the device runs in its
+    place (gloo's all-gather and chunk here, moving and counted nothing
+    more)."""
+    r = case(mesh_counts, "shard_to_shard")
+    assert r["collectives"]["all-to-all"] == {"count": 1.0,
+                                              "bytes": 4 * 128 * 4}
+    assert r["collective_bytes_total"] == 4 * 128 * 4
+    assert r["collectives"]["all-gather"]["count"] == 0
+    # the shard read and the new one written
+    assert r["bytes_hbm"] == 2 * 4 * 128 * 4
+    assert r["flops"] == 0 and r["warnings"] == []
+
+
 def test_one_trip_weighted_by_n_acc_equals_both_trips(mesh_counts):
     r = case(mesh_counts, "n_acc")
     assert r["n_acc"] == 2

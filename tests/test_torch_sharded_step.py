@@ -10,7 +10,12 @@ JAX blocked, both from one starting state (the reference's
 Train cases take 2 steps of llama3.2-1b SMOKE at (2, 2) tensor parallel
 and sequence parallel, at (1, 4) where ``n_kv_heads`` 2 does not divide
 the model axis (the GQA pinning), at (2, 2) with ``fsdp``, and of
-deepseek-moe-16b and falcon-mamba-7b SMOKE at (2, 2).  Tolerances: the
+deepseek-moe-16b and falcon-mamba-7b SMOKE at (2, 2); then the backward
+where heads split unevenly: llama3.2-1b SMOKE, qwen2-0.5b SMOKE (its
+q/k/v biases) and a llama cut with 6 q heads (``cut``:
+``ModelConfig.with_`` fields) in sequence parallel at (1, 4), and
+falcon-mamba-7b SMOKE at (2, 2) over 1,024 tokens (``seq``), where the
+scan runs in chunks.  Tolerances: the
 loss within 2e-5 x |ref|, every master, m and v leaf within 1e-4 x max
 |ref leaf| (the tolerance of ``test_torch_train_step.py``'s three
 one-device steps: each rank sums its own float32 partial products, in an
@@ -20,7 +25,9 @@ reference's output.  Where the reference's own sharded result lies
 further than that from its one-device result on the same state and
 batches (AdamW divides by sqrt(v), so a gradient entry near zero turns a
 last-bit difference of the reduction order into a visible update: the
-MoE's ``embed``, 7.6e-4 x max at (2, 2)), a leaf may differ from the
+MoE's ``embed``, 7.6e-4 x max at (2, 2); qwen2's ``bk``, 8.9e-3 x max
+at (1, 4), on the entries of its lowest RoPE frequencies, which leave
+the scores nearly blind to the key bias), a leaf may differ from the
 sharded reference by that spread on top of 1e-4 x max; the worker
 reports the spread, and the test prints each leaf it widened.
 
@@ -59,6 +66,16 @@ TRAIN = [
     dict(name="llama_fsdp_2x2", arch="llama3.2-1b", mesh=(2, 2), fsdp=True),
     dict(name="moe_2x2", arch="deepseek-moe-16b", mesh=(2, 2)),
     dict(name="ssm_2x2", arch="falcon-mamba-7b", mesh=(2, 2)),
+    # heads that split unevenly over the model axis in the backward: the
+    # gradient of the (nkv, g) unflatten (SMOKE, 4 q / 2 kv heads) and of
+    # the flatten before ``wo`` (a cut with 6 q heads)
+    dict(name="llama_seq_1x4", arch="llama3.2-1b", mesh=(1, 4), mode="seq"),
+    dict(name="qwen_seq_1x4", arch="qwen2-0.5b", mesh=(1, 4), mode="seq"),
+    dict(name="llama6_seq_1x4", arch="llama3.2-1b", mesh=(1, 4), mode="seq",
+         cut=dict(n_heads=6, n_kv_heads=2, d_model=96)),
+    # above the scan chunk (512): the chunked scan's write into its first
+    # step, whose backward must not meet a Partial gradient
+    dict(name="ssm_2x2_1k", arch="falcon-mamba-7b", mesh=(2, 2), seq=1024),
 ]
 SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype)
          for short, arch in (("llama", "llama3.2-1b"),
@@ -77,9 +94,10 @@ def numpy_tree(tree):
                         if a.dtype != np.int32 else np.asarray(a), tree)
 
 
-def start_state(arch, seq, batch):
+def start_state(arch, seq, batch, cut=None):
     """The reference's one-device initial train state, as numpy."""
-    cfg = RC.get_config(arch, smoke=True).with_(dtype="float32")
+    cfg = RC.get_config(arch, smoke=True).with_(dtype="float32",
+                                                **(cut or {}))
     built = R_build(cfg, R_Shape("s", "train", seq, batch), R_mesh(1, 1),
                     n_acc=1)
     st = R_init(cfg, built)
@@ -96,11 +114,13 @@ def train_batches(arch, seq, batch, n):
 def train_cases():
     states = {}
     for c in TRAIN:
-        if c["arch"] not in states:
-            states[c["arch"]] = start_state(c["arch"], SEQ, BATCH)
-        yield dict(c, kind="train", dtype="float32", seq=SEQ, batch=BATCH,
-                   n_acc=2, state=states[c["arch"]],
-                   batches=train_batches(c["arch"], SEQ, BATCH, 2))
+        key = (c["arch"], repr(sorted(c.get("cut", {}).items())))
+        if key not in states:
+            states[key] = start_state(c["arch"], SEQ, BATCH, c.get("cut"))
+        seq = c.get("seq", SEQ)
+        yield dict(c, kind="train", dtype="float32", seq=seq, batch=BATCH,
+                   n_acc=2, state=states[key],
+                   batches=train_batches(c["arch"], seq, BATCH, 2))
 
 
 def serve_cases():

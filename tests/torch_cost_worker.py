@@ -13,7 +13,10 @@ Cases: ``sharded_mm`` (64, 128) @ (128, 256) with the left operand
 ``Shard(0)`` over ``data`` and the right ``Shard(1)`` over ``model``;
 ``replicated_mm``, the same on replicated operands; ``contraction``, the
 contracted dimension sharded over ``model`` on both and the product made
-Replicate; ``dtensor_view``, a view of a sharded DTensor; ``n_acc``, a
+Replicate; ``dtensor_view``, a view of a sharded DTensor;
+``shard_to_shard``, a (64, 128) ``Shard(0)`` over ``model`` redistributed
+to ``Shard(1)`` (on this CPU mesh DTensor runs it as an all-gather and a
+chunk; a CUDA mesh as one all-to-all); ``n_acc``, a
 train step of 2 microbatches counted in full and as one trip weighted by
 2 (``launch/dryrun.py``).
 """
@@ -56,6 +59,11 @@ def mesh_cases(mesh):
         A = distribute_tensor(torch.empty(64, 128), mesh, [S(0), S(1)])
         return hlo_cost.analyze(lambda: A.view(64, 16, 8).transpose(1, 2))
     yield "dtensor_view", view
+
+    def shard_to_shard():
+        A = distribute_tensor(torch.empty(64, 128), mesh, [R, S(0)])
+        return hlo_cost.analyze(lambda: A.redistribute(mesh, [R, S(1)]))
+    yield "shard_to_shard", shard_to_shard
 
 
 def n_acc_case(mesh):

@@ -5,7 +5,8 @@ and write what they computed.
     python tests/torch_shard_worker.py port IN OUT PORT
 
 ``IN`` is a pickle ``{"cases": [...], ...}`` made by the test module: each
-case names an arch, a mesh and what to run, and carries its starting state,
+case names an arch (its SMOKE config, changed by the ``ModelConfig.with_``
+fields of its ``cut``), a mesh and what to run, and carries its starting state,
 weights and inputs as numpy arrays in the reference's layout.  ``ref`` runs
 the reference (``repro``) on 4 forced host devices; ``port`` runs the port
 (``repro_torch``) on 4 gloo ranks joined on ``tcp://127.0.0.1:PORT`` with
@@ -52,7 +53,8 @@ def run_ref(cases, tmp):
     from repro.runtime.trainer import Trainer, TrainerConfig
 
     def cfg_of(case):
-        return get_config(case["arch"], smoke=True).with_(dtype=case["dtype"])
+        return get_config(case["arch"], smoke=True).with_(
+            dtype=case["dtype"], **case.get("cut", {}))
 
     def state_of(d, shardings):
         st = TrainState(np.asarray(d["step"], np.int32), d["params"], d["m"],
@@ -177,7 +179,8 @@ def port_rank(rank, port, cases, tmp, out_path):
                             world_size=4, rank=rank)
 
     def cfg_of(case):
-        return get_config(case["arch"], smoke=True).with_(dtype=case["dtype"])
+        return get_config(case["arch"], smoke=True).with_(
+            dtype=case["dtype"], **case.get("cut", {}))
 
     def full(t):
         return t.full_tensor() if isinstance(t, DTensor) else t
