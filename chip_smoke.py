@@ -21,7 +21,7 @@ drives each path that runs a kernel, with that kernel's launch count reset
 just before and read just after:
 
 - online admission through ``OnlinePlacer`` + ``AdmissionPipeline`` on a
-  1024-node Waxman network with a 512-arrival stream (the batched superstep
+  1024-node Waxman network with a 256-arrival stream (the batched superstep
   kernel; its supersteps are also counted by batch size B), replayed with
   ``kernel_impl="plain"``, which must end in the bitwise-same state;
 - the decentralized BSP engine ``solve(method="shard_map")`` on one rank
@@ -154,8 +154,10 @@ just before and read just after:
   ``cpu`` tensors, four subprocesses started together at the start of
   phase 15 (after phase 14's timings) and run on the host beside (a)
   and (b): every cell exits 0,
-  FLOPs, collectives and ``argument_bytes`` equal across the two devices;
-  per-device FLOPs, bytes, collectives and memory printed.
+  FLOPs, collectives and ``argument_bytes`` equal across the two devices,
+  the single-pod cell's FLOPs 2.701792e14 per device (the count the
+  chunk loops on local shards keep); per-device FLOPs, bytes,
+  collectives and memory printed.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -185,7 +187,7 @@ SEED = 2009
 N_NODES = 1024  # waxman(1024): the smallest network benchmarks/bench_trace.py replays
 P = 8
 POOL = 192
-ARRIVALS = 512
+ARRIVALS = 256  # with its plain replay, the script's longest phase on a slow host
 MICRO_BATCH = 64
 RELEASE_P = 0.2
 # H100 SXM: 132 SMs x 128 FP32 lanes; 3.35 TB/s HBM3 (NVIDIA data sheet)
@@ -2845,6 +2847,10 @@ def sharded_serve_phase(tag, *, device="cuda", smoke=False):
 DRYRUN_CELL = ("qwen2-0.5b", "decode_32k")
 TRAIN_DRYRUN_CELL = ("llama3.2-1b", "train_4k")  # phase 15 (c)
 TRAIN_DRYRUN_TIMEOUT_S = 600  # from its start in phase 15
+# (c)'s per-device FLOPs on the single-pod mesh (256 ranks), to the 7
+# digits the CPU sweep and earlier card runs read: the local chunk loops
+# dispatch the operators DTensor dispatched in them
+TRAIN_DRYRUN_FLOPS = "2.701792e+14"
 DRYRUN_MESHES = ("single", "multi")
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
@@ -3320,6 +3326,11 @@ def main() -> int:
     free_device()
     cost["train_dryrun"] = collect_dryruns(tag, "(c)", train_dryrun,
                                            timeout=TRAIN_DRYRUN_TIMEOUT_S)
+    flops = cost["train_dryrun"]["single"]["flops"]
+    assert f"{flops:.6e}" == TRAIN_DRYRUN_FLOPS, (flops, TRAIN_DRYRUN_FLOPS)
+    print(f"[{tag}] phase 15 (c) {TRAIN_DRYRUN_CELL[0]} x "
+          f"{TRAIN_DRYRUN_CELL[1]} single: {flops:.6e} FLOPs per device == "
+          f"{TRAIN_DRYRUN_FLOPS}")
     print(f"[{tag}] cost model: {json.dumps(cost)}")
     print(f"[{tag}] phase 15 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")

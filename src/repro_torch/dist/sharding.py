@@ -33,7 +33,9 @@ from typing import Any, Optional, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 AxisSpec = Union[str, tuple, None]
 
@@ -395,6 +397,115 @@ def grad_batch_only(t):
     from S(1) to P(sum)").  A plain tensor, or one that records no
     gradient, passes unchanged."""
     return _relaid(t, _same, batch_only)
+
+
+def _split_names(ts, dims, sizes, mesh) -> list:
+    """Per mesh dimension, the logical dimension (a key of ``sizes``) that
+    it splits in every tensor of ``ts`` that has it, or None (all
+    replicated there); see ``on_local_shards``."""
+    names, ways = [], {n: 1 for n in sizes}
+    for j in range(mesh.ndim):
+        pl = [t.placements[j] for t in ts]
+        seen = set()
+        for t, d, p in zip(ts, dims, pl):
+            if isinstance(p, Shard):
+                by_dim = {v: n for n, v in d.items()}
+                seen.add(by_dim.get(p.dim % t.ndim, "other"))
+            elif isinstance(p, Partial):
+                seen.add("partial")
+        if seen == {"partial"} and all(isinstance(p, Partial) for p in pl):
+            # DTensor reduce-scatters Partial operands onto the first
+            # logical dimension that splits evenly
+            choice = list(sizes)
+        elif len(seen) == 1 and "other" not in seen and "partial" not in seen:
+            choice = list(seen)
+        else:
+            choice = []
+        n = next((n for n in choice
+                  if sizes[n] % (ways[n] * mesh.size(j)) == 0), None)
+        if n is not None:
+            ways[n] *= mesh.size(j)
+        names.append(n)
+    return names
+
+
+def _placed(names, d) -> tuple:
+    return tuple(Shard(d[n]) if n in d else Replicate() for n in names)
+
+
+def _offset(mesh, names, name, size) -> int:
+    """This rank's first index along logical dimension ``name`` (of
+    ``size``), split over the mesh dimensions ``names`` gives it, in mesh
+    order."""
+    idx, ways = 0, 1
+    coord = mesh.get_coordinate()
+    for j, n in enumerate(names):
+        if n == name:
+            idx = idx * mesh.size(j) + coord[j]
+            ways *= mesh.size(j)
+    return idx * (size // ways)
+
+
+def _laid_out(t, pl):
+    """DTensor ``t`` on placements ``pl``: a gather by DTensor's
+    redistribute (the gradient split again as ``t`` was, as ``whole_dim``
+    does), then a split or a Partial sum reduced with the gradient handed
+    back as it comes (as DTensor's operators, which did these inside
+    each operator, hand it back)."""
+    mesh, cur = t.device_mesh, tuple(t.placements)
+    gathered_ = tuple(Replicate() if isinstance(c, Shard)
+                      and isinstance(p, Replicate) else c
+                      for c, p in zip(cur, pl))
+    if gathered_ != cur:
+        t = t.redistribute(mesh, gathered_)
+    if gathered_ != pl:
+        t = _relaid(t, lambda x: x.redistribute(mesh, pl), _same)
+    return t
+
+
+def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), **kw):
+    """``fn(*ts, **kw)`` run on each rank's local shards, for a function of
+    many small operators (a loop over chunks) that DTensor would otherwise
+    lay out operator by operator.
+
+    ``dims[i]`` maps logical dimension names (the keys of ``sizes``, their
+    global lengths, e.g. ``{"batch": B, "heads": nkv}``) to tensor i's
+    dimensions; ``fn`` must be independent along each of them (a split
+    one runs rank by rank), and ``out_dims`` does the same for ``fn``'s
+    outputs (a dict for one output, a tuple of dicts for several).  Each
+    mesh dimension keeps splitting one logical dimension where the
+    operands already agree on it (a replicated operand is split locally,
+    with no communication), a Partial sum over it is reduce-scattered
+    onto the first logical dimension that it splits evenly, as DTensor's
+    own choice for such products is, and anything else (a split of a
+    dimension ``fn`` does not take apart, as a sequence that ``fn``
+    chunks and masks by its global positions, or operands that disagree)
+    is gathered once.  The operands are then redistributed once
+    (``_laid_out``), and ``fn`` runs on the local shards through
+    ``local_map``.  ``ts`` may hold None (an absent operand).  For
+    each name in ``offsets`` ``fn`` receives the keyword ``<name>0``, the
+    rank's first index along it (0 where it is not split).  Plain tensors
+    call ``fn`` directly."""
+    if not any(isinstance(t, DTensor) for t in ts):
+        return fn(*ts, **kw, **{n + "0": 0 for n in offsets})
+    mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
+    ts = [t if t is None or isinstance(t, DTensor) else
+          DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False) for t in ts]
+    live = [(t, d) for t, d in zip(ts, dims) if t is not None]
+    names = _split_names([t for t, _ in live], [d for _, d in live], sizes,
+                         mesh)
+    kw.update({n + "0": _offset(mesh, names, n, sizes[n]) for n in offsets})
+    ts = [None if t is None else _laid_out(t, _placed(names, d))
+          for t, d in zip(ts, dims)]
+    # one output's placements a list: local_map reads a tuple as one
+    # placement sequence per output
+    outs = (list(_placed(names, out_dims)) if isinstance(out_dims, dict)
+            else tuple(_placed(names, d) for d in out_dims))
+    return local_map(
+        lambda *a: fn(*a, **kw), out_placements=outs,
+        in_placements=tuple(None if t is None else t.placements for t in ts),
+        device_mesh=mesh)(*ts)
 
 
 def tree_map(fn, tree, *rest):

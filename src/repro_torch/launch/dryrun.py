@@ -14,8 +14,12 @@ rank 0, and writes the reference's JSON fields, per device:
 - ``timing.lower_s``: the build and the fake layout; ``compile_s``: the
   counted run (there is no compile);
 - ``memory``: the reference's ``memory_analysis()`` fields.
-  ``argument_bytes`` is the local bytes of every argument on its
-  ``in_shardings`` (the token and ``pos`` included, as XLA's arguments);
+  ``argument_bytes`` is the local bytes, on its ``in_shardings``, of
+  every argument leaf the step reads (the token and ``pos`` included, as
+  XLA's arguments; ``hlo_cost.Counters.read``): the compiled reference
+  keeps only those (``jax.jit``'s ``keep_unused=False``), so a decode
+  step drops the encoder's weights and a Mamba step ``pos``, and a
+  prefill drops the SSM states it writes without reading;
   ``output_bytes`` and ``alias_bytes`` (the outputs that are arguments: the
   cache, the train state) from the returned tensors; ``temp_bytes`` the
   peak of live local storage the step allocates, and ``peak_bytes`` that
@@ -113,16 +117,23 @@ def local_nbytes(t: torch.Tensor, sharding) -> int:
     return count * t.dtype.itemsize
 
 
-def _argument_bytes(abstract, shardings) -> int:
+def _argument_bytes(abstract, shardings, actual, read) -> int:
+    """Local bytes of the argument leaves (``abstract`` on ``shardings``)
+    whose counterpart in ``actual``, the arguments the step ran on, it
+    read (``read``)."""
+    if isinstance(actual, torch.nn.Module):
+        actual = dict(actual.named_parameters())
     if isinstance(abstract, torch.Tensor):
-        return local_nbytes(abstract, shardings)
+        return local_nbytes(abstract, shardings) if read(actual) else 0
     if isinstance(abstract, dict):
-        return sum(_argument_bytes(abstract[k], shardings[k])
+        return sum(_argument_bytes(abstract[k], shardings[k], actual[k], read)
                    for k in abstract)
     if hasattr(abstract, "__dataclass_fields__"):
-        return sum(_argument_bytes(getattr(abstract, f), getattr(shardings, f))
+        return sum(_argument_bytes(getattr(abstract, f), getattr(shardings, f),
+                                   getattr(actual, f), read)
                    for f in abstract.__dataclass_fields__)
-    return sum(_argument_bytes(a, s) for a, s in zip(abstract, shardings))
+    return sum(_argument_bytes(a, s, t, read)
+               for a, s, t in zip(abstract, shardings, actual))
 
 
 def _fake_like(meta: torch.Tensor, device) -> torch.Tensor:
@@ -158,8 +169,12 @@ def _arguments(cfg, shape, built, device):
     cache = init_cache(built)
     if kind == "decode":
         token = _fake_like(built.abstract_args[2], device)
-        # the whole cache is read under a mask, at any position
-        return (model, cache, token, shape.seq_len - 1)
+        # the whole cache is read under a mask, at any position; a tensor
+        # argument, as the reference's (a literal: a fake tensor keeps its
+        # value, which indexing a row by it reads)
+        pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32,
+                           device=device)
+        return (model, cache, token, pos)
     batch = {k: _fake_like(v, device)
              for k, v in built.abstract_args[2].items()}
     return (model, cache, batch)
@@ -210,11 +225,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         t_lower = time.time() - t0
         out, c = count_step(built, args)
         t_compile = time.time() - t0 - t_lower
+        mem = c.memory()
+        mem["argument_bytes"] = _argument_bytes(
+            built.abstract_args, built.in_shardings, args, c.read)
     del out, args
     loop_aware = c.report()
-    mem = c.memory()
-    mem["argument_bytes"] = _argument_bytes(built.abstract_args,
-                                            built.in_shardings)
     mem["peak_bytes"] = mem["argument_bytes"] + mem["temp_bytes"]
     result = {
         "arch": arch,

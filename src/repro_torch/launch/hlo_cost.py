@@ -59,11 +59,20 @@ Per operator:
   ``cpu`` tensors;
 - transcendentals: the elements of exp/log/tanh/sigmoid/rsqrt/erf-class
   results (``silu``, ``softmax`` and ``gelu`` included);
-- memory (``memory()``): the arguments' local bytes, the outputs' and the
-  outputs that are arguments (``alias_bytes``), and the peak of live local
-  storage during the run, above (``temp_bytes``) and including
-  (``peak_bytes``) the arguments, from a ``weakref.finalize`` on every
-  storage an operator creates.
+- memory (``memory()``): the local bytes of the arguments the step reads,
+  the outputs' and the outputs that are arguments (``alias_bytes``), and
+  the peak of live local storage during the run, above (``temp_bytes``)
+  and including (``peak_bytes``) the arguments read, from a
+  ``weakref.finalize`` on every storage an operator creates.  An argument
+  counts as read, as XLA keeps an argument (``jax.jit``'s
+  ``keep_unused=False`` drops the rest), when an operator takes its
+  storage, or a view of it, as an input before those bytes were written;
+  the destination of a ``copy_``/``fill_``/``zero_`` or an ``out=`` is
+  written, not read, and an in-place update into part of it
+  (``index_copy_``, ``add_``, ...) reads it.  A written argument whose
+  bytes the step does not overwrite whole, and an argument the step
+  returns without overwriting it whole, count as read: their old bytes
+  flow to the output.  ``read(t)`` says whether ``t``'s storage was read.
 
 ``n_computations`` is, in the port, the number of local operators
 dispatched.  ``Counters.weighted(n)`` weights what is counted inside it by
@@ -130,6 +139,8 @@ _UPDATES = {aten.index_put_: 2, aten.index_put: 2, aten._index_put_impl_: 2,
             aten.slice_scatter: 1, aten.select_scatter: 1,
             aten.diagonal_scatter: 1, aten.as_strided_scatter: 1,
             aten.masked_scatter_: 2}
+# operators that overwrite their first argument without reading it
+_OVERWRITES = {aten.copy_, aten.fill_, aten.zero_}
 _READS = {aten.index, aten._unsafe_index, aten.index_select, aten.gather,
           aten.embedding, aten.take, aten.take_along_dim}
 _TRANSCENDENTAL = {aten.exp, aten.exp_, aten.exp2, aten.expm1, aten.log,
@@ -246,8 +257,9 @@ class Counters(TorchDispatchMode):
         self.top: list = []
         self.unmapped: dict = defaultdict(int)
         self.by_op: dict = defaultdict(lambda: [0.0, 0.0, 0.0])
-        self.argument_bytes = 0
         self._arg_storages: dict = {}
+        self._read: set = set()
+        self._written: dict = {}  # argument storage -> [lo, hi) bytes written
         self._live = 0
         self.peak_live = 0
         self.output_bytes = 0
@@ -281,6 +293,7 @@ class Counters(TorchDispatchMode):
             inner = vars(mod)["shard_dim_alltoall"]
 
             def alltoall(t, gather_dim, shard_dim, mesh, mesh_dim, _fn=inner):
+                self._access(t, False)
                 self.paused += 1
                 try:
                     out = _fn(t, gather_dim, shard_dim, mesh, mesh_dim)
@@ -322,12 +335,12 @@ class Counters(TorchDispatchMode):
         the start and are not new when an operator returns them."""
         for t in _leaves(trees):
             st = t.untyped_storage()
-            if id(st) not in self._arg_storages:
-                self._arg_storages[id(st)] = st
-                self.argument_bytes += st.nbytes()
+            self._arg_storages.setdefault(id(st), st)
 
     def outputs(self, *trees):
-        """Record the step's outputs (``output_bytes``, ``alias_bytes``)."""
+        """Record the step's outputs (``output_bytes``, ``alias_bytes``);
+        an argument among them that the step did not overwrite whole
+        counts as read."""
         seen = set()
         for t in _leaves(trees):
             st = t.untyped_storage()
@@ -337,6 +350,68 @@ class Counters(TorchDispatchMode):
             self.output_bytes += st.nbytes()
             if id(st) in self._arg_storages:
                 self.alias_bytes += st.nbytes()
+                if not self._covered(id(st), 0, st.nbytes()):
+                    self._read.add(id(st))
+
+    def read(self, t: torch.Tensor) -> bool:
+        """Whether the step read the argument ``t`` (a local shard of a
+        DTensor): see the module's docstring."""
+        return self._kept(id(_local(t).untyped_storage()))
+
+    def _kept(self, key) -> bool:
+        if key in self._read:
+            return True
+        # written, but not whole: the old bytes flow to the output
+        return key in self._written and not self._covered(
+            key, 0, self._arg_storages[key].nbytes())
+
+    @property
+    def argument_bytes(self) -> int:
+        """The local bytes of the arguments read."""
+        return sum(st.nbytes() for key, st in self._arg_storages.items()
+                   if self._kept(key))
+
+    def _covered(self, key, lo, hi) -> bool:
+        return any(a <= lo and hi <= b for a, b in self._written.get(key, ()))
+
+    def _note_access(self, func, args, kwargs):
+        """Mark the argument storages ``func`` reads or overwrites."""
+        packet = func._overloadpacket
+        if (func.is_view or func.namespace == "prim" or packet in _FREE
+                or (packet in _FILLS and packet not in _OVERWRITES)):
+            return  # metadata, allocations and aliases read no bytes
+        for i, a in enumerate(func._schema.arguments):
+            val = args[i] if i < len(args) else kwargs.get(a.name)
+            written = a.alias_info is not None and a.alias_info.is_write
+            over = written and (a.is_out or (i == 0 and packet in _OVERWRITES))
+            for t in _tensors(val):
+                self._access(t, over)
+
+    def _access(self, t, overwrite: bool):
+        key = id(t.untyped_storage())
+        if key not in self._arg_storages or key in self._read \
+                or t.numel() == 0:
+            return
+        size = t.element_size()
+        lo = t.storage_offset() * size
+        hi = lo + size * (1 + sum((n - 1) * s for n, s in
+                                  zip(t.shape, t.stride())))
+        if not overwrite:
+            if not self._covered(key, lo, hi):
+                self._read.add(key)
+            return
+        spans = self._written.setdefault(key, [])
+        if not t.is_contiguous():  # some bytes of [lo, hi) stay
+            return
+        spans.append((lo, hi))
+        spans.sort()
+        merged = [spans[0]]
+        for a, b in spans[1:]:
+            if a <= merged[-1][1]:
+                merged[-1] = (merged[-1][0], max(merged[-1][1], b))
+            else:
+                merged.append((a, b))
+        spans[:] = merged
 
     def _track(self, out):
         for t in _tensors(out):
@@ -369,6 +444,8 @@ class Counters(TorchDispatchMode):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # DTensor runs its local operators
+        if self._arg_storages:
+            self._note_access(func, args, kwargs)
         out = func(*args, **kwargs)
         if self.paused:
             return out

@@ -19,7 +19,8 @@ from torch import nn
 
 from torch.distributed.tensor import DTensor
 
-from ..dist.sharding import constrain, grad_whole_dim, local_write, whole_dim
+from ..dist.sharding import (constrain, grad_whole_dim, local_write,
+                             on_local_shards, whole_dim)
 from .common import apply_rope, dtype_of, einsum, matmul, recompute
 
 NEG_INF = -1e30
@@ -196,29 +197,72 @@ def live_kv_chunks(qi, q_chunk, kv_chunk, nkc, causal) -> int:
     return min(nkc, (qi * q_chunk + q_chunk - 1) // kv_chunk + 1)
 
 
-def _per_q_chunk(qc, k_ch, v_ch, qi, causal):
-    """One query chunk against every KV chunk -> (B, qch, nkv, g, hd)."""
-    B, q_chunk, nkv, g, hd = qc.shape
+def _per_q_chunk(qc, k_ch, v_ch, qi, q_chunk, rows0, causal):
+    """Rows ``rows0`` onward of query chunk ``qi`` (of ``q_chunk`` rows)
+    against every KV chunk it attends to -> the online softmax's
+    (acc (B, nkv, g, rows, hd), l (B, nkv, g, rows)), l clamped here (a
+    checkpoint of this function recomputes its last KV step to give the
+    clamp its input back, as it did when the division was here too)."""
+    B, rows, nkv, g, hd = qc.shape
     kv_chunk = k_ch.shape[2]
     dev = qc.device
-    q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
-    m = torch.full((B, nkv, g, q_chunk), NEG_INF, dtype=torch.float32,
+    q_pos = qi * q_chunk + rows0 + torch.arange(rows, device=dev)
+    m = torch.full((B, nkv, g, rows), NEG_INF, dtype=torch.float32,
                    device=dev)
-    l = torch.zeros((B, nkv, g, q_chunk), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, nkv, g, q_chunk, hd), dtype=torch.float32,
+    l = torch.zeros((B, nkv, g, rows), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nkv, g, rows, hd), dtype=torch.float32,
                       device=dev)
     for ki in range(live_kv_chunks(qi, q_chunk, kv_chunk, k_ch.shape[1],
                                    causal)):
         m, l, acc = recompute(_kv_step, qc, q_pos, k_ch[:, ki], v_ch[:, ki],
                               ki, kv_chunk, causal, m, l, acc)
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4)
+    return acc, torch.clamp_min(l, 1e-30)
 
 
 def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     """Online-softmax attention. q: (B,Sq,nq,hd), k/v: (B,Skv,nkv,hd).
 
-    GQA handled by reshaping q to (B, Sq, nkv, g, hd).  Runs KV chunks with
+    q is split into (B, chunks, rows, nq, hd) and the chunk loops run on
+    plain tensors (``_attend``).  DTensors are laid out once and the
+    loops run on each rank's local shards (``dist.sharding.
+    on_local_shards``): batch, whole kv-head groups and the rows of every
+    q chunk may stay split (the rows where Partial operands split neither
+    of the others, as DTensor's own choice splits them); the chunks of a
+    split sequence are gathered once, as the KV loop reads all of k and v
+    and the causal mask global positions.  Without this DTensor would lay
+    out every operator of every KV step anew."""
+    B, Sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    nqc = _chunk_count(Sq, q_chunk)
+    q_chunk = Sq // nqc
+    # a DTensor's sequence splits into chunks along whole shards
+    # (``whole_dim``)
+    q = whole_dim(q, 1, nqc).reshape(B, nqc, q_chunk, nq, hd)
+    qd, kd = {"batch": 0, "heads": 3, "rows": 2}, {"batch": 0, "heads": 2}
+    ad = {"batch": 0, "heads": 2, "rows": 4}
+    acc, l = on_local_shards(
+        _attend, (q, k, v), (qd, kd, kd),
+        {"batch": B, "heads": nkv, "rows": q_chunk}, (ad, ad),
+        offsets=("rows",), causal=causal, q_chunk=q_chunk,
+        kv_chunk=kv_chunk)
+    # the division after the loops, by DTensor's operators: a Partial
+    # gradient from the output projection is summed after its backward,
+    # as when the loops ran on DTensors; the rows gathered once
+    out = (acc / l[..., None]).permute(0, 1, 4, 2, 3, 5)
+    out = whole_dim(out.reshape(B, nqc, q_chunk, nq, hd), 2)
+    # the gradient splits back into (nkv, g) along whole shards
+    # (``grad_whole_dim``)
+    return grad_whole_dim(out.reshape(B, Sq, nq, hd), 2, nkv).to(v.dtype)
+
+
+def _attend(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
+            rows0: int):
+    """``_chunked_attention``'s loops on plain tensors: q (B, nqc, rows,
+    nq, hd), rows ``rows0`` onward of each chunk of ``q_chunk``; returns
+    the online softmax's acc (B, nqc, nkv, g, rows, hd) and l (B, nqc,
+    nkv, g, rows), which ``_chunked_attention`` divides.
+
+    GQA handled by reshaping q to (..., nkv, g, hd).  Runs KV chunks with
     running (max, denom, acc), one q chunk at a time, and under the causal
     mask only the chunks it does not mask whole (``live_kv_chunks``: the
     values are the reference's, which computes those too).  While autograd
@@ -227,31 +271,20 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     backward pass recomputes every (q, kv) chunk pair's scores instead of
     keeping them.
     """
-    B, Sq, nq, hd = q.shape
+    B, nqc, rows, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
     scale = hd ** -0.5
-    nqc = _chunk_count(Sq, q_chunk)
-    q_chunk = Sq // nqc
     nkc = _chunk_count(Skv, kv_chunk)
     kv_chunk = Skv // nkc
 
-    # DTensors: the heads split into (nkv, g) and the sequences into
-    # chunks only along whole shards (``whole_dim``; the GQA pinning's
-    # q sharded over more ways than nkv is gathered here)
-    q = whole_dim(whole_dim(q, 2, nkv), 1, nqc)
-    k, v = (whole_dim(t, 1, nkc) for t in (k, v))
-    q = (q * scale).reshape(B, Sq, nkv, g, hd)
-    q_ch = q.reshape(B, nqc, q_chunk, nkv, g, hd)
+    q_ch = (q * scale).reshape(B, nqc, rows, nkv, g, hd)
     k_ch = k.reshape(B, nkc, kv_chunk, nkv, hd)
     v_ch = v.reshape(B, nkc, kv_chunk, nkv, hd)
-    outs = [recompute(_per_q_chunk, q_ch[:, qi], k_ch, v_ch, qi, causal)
-            for qi in range(nqc)]
-    # the gradient splits back into (nkv, g) along whole shards
-    # (``grad_whole_dim``)
-    out = grad_whole_dim(torch.cat(outs, dim=1).reshape(B, Sq, nq, hd), 2,
-                         nkv)
-    return out.to(v.dtype)
+    outs = [recompute(_per_q_chunk, q_ch[:, qi], k_ch, v_ch, qi, q_chunk,
+                      rows0, causal) for qi in range(nqc)]
+    return (torch.stack([a for a, _ in outs], dim=1),
+            torch.stack([l for _, l in outs], dim=1))
 
 
 def init_cache(cfg, batch, max_len, dtype, *, device=None):

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import batch_only, grad_batch_only
+from ..dist.sharding import batch_only, grad_batch_only, on_local_shards
 from .common import dtype_of, einsum, matmul, softplus
 
 SCAN_CHUNK = 512  # sequence chunk for the chunked recurrence (memory knob)
@@ -343,7 +343,21 @@ def _ssd_chunked(dt, A, xh, Bc, Cc, h0, Q):
     dt (B,S,nh), A (nh,), xh (B,S,nh,hp), Bc/Cc (B,S,N).  Within a chunk a
     decay-masked (Q,Q) matmul in bfloat16 (float32 accumulation), across
     chunks a float32 state recurrence.  Returns (y bfloat16, last
-    state float32)."""
+    state float32).  DTensors run on each rank's local shards
+    (``dist.sharding.on_local_shards``), split by batch and by heads as
+    they arrive (``dt`` and ``A`` by heads where the model axis splits
+    ``dt_bias`` and ``A_log``); plain tensors run ``_ssd``."""
+    bh = {"batch": 0, "heads": 2}
+    return on_local_shards(
+        _ssd, (dt, A, xh, Bc, Cc, h0),
+        (bh, {"heads": 0}, bh, {"batch": 0}, {"batch": 0},
+         {"batch": 0, "heads": 1}),
+        {"batch": dt.shape[0], "heads": dt.shape[2]},
+        (bh, {"batch": 0, "heads": 1}), Q=Q)
+
+
+def _ssd(dt, A, xh, Bc, Cc, h0, *, Q):
+    """``_ssd_chunked`` on plain tensors."""
     B, S, nh = dt.shape
     hp, N = xh.shape[-1], Bc.shape[-1]
     nc = S // Q

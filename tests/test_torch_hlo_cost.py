@@ -145,6 +145,33 @@ def test_memory_tracks_arguments_temporaries_and_aliases():
     assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
 
 
+def test_argument_bytes_count_only_the_leaves_read():
+    """An argument counts when an operator reads it: ``unused`` is never
+    read; ``state`` is overwritten whole (in two ``copy_``s) before any
+    read; ``cache`` is updated in part (``index_copy_`` keeps the rest);
+    ``half`` is returned with half of it overwritten (the rest flows to
+    the output), as XLA keeps exactly ``w``, ``cache`` and ``half``."""
+    w, unused = torch.randn(16, 16), torch.randn(8)
+    state, cache, half = torch.zeros(2, 4), torch.zeros(4, 4), torch.zeros(4)
+
+    def step(w, unused, state, cache, half):
+        x = torch.ones(3, 16) @ w
+        state[0].copy_(x[0, :4])
+        state[1].copy_(x[1, :4])
+        y = state.sum()  # reads what the step wrote, not the argument
+        cache.index_copy_(0, torch.tensor([1]), x[:1, :4])
+        half[:2].copy_(x[2, :2])
+        return x + y, state, cache, half
+
+    with hlo_cost.Counters() as c:
+        c.arguments(w, unused, state, cache, half)
+        out = step(w, unused, state, cache, half)
+        c.outputs(out)
+    assert [c.read(t) for t in (w, unused, state, cache, half)] == [
+        True, False, False, True, True]
+    assert c.memory()["argument_bytes"] == (16 * 16 + 4 * 4 + 4) * 4
+
+
 @pytest.fixture(scope="module")
 def mesh_counts(tmp_path_factory):
     out = tmp_path_factory.mktemp("cost") / "out.json"

@@ -1,0 +1,136 @@
+"""The chunk loops on local shards against the plain call, on a (2, 2)
+("data", "model") mesh of 4 gloo ranks.
+
+    python tests/torch_local_shards_worker.py PORT OUT
+
+Joins 4 ranks on ``tcp://127.0.0.1:PORT`` (JAX blocked), runs each case
+on DTensors and on the whole plain tensors, and rank 0 writes {case: the
+largest absolute difference of the gathered outputs} to ``OUT`` as JSON.
+
+Cases: the chunked attention (``attention._chunked_attention``) with q,
+k and v split by batch and kv heads, as Partial sums that split neither
+(so by the rows of every q chunk, each rank at its own offset), and with
+the sequence split (gathered once); the SSD (``ssm._ssd_chunked``) with
+``dt`` and ``A`` split by heads, the rest by batch, with and without an
+initial state; and one ``Attention.forward`` (llama3.2-1b SMOKE) and one
+``mamba2_block`` (zamba2-7b SMOKE) with their weights laid out by the
+training rules, against the same modules on plain tensors.
+"""
+import json
+import sys
+
+
+def rank_main(rank, port, out_path):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.steps import abstract_model, shard_model
+    from repro_torch.models import attention as att
+    from repro_torch.models import ssm
+    from repro_torch.models.common import draw_weights
+    from repro_torch.models.registry import empty_model
+
+    torch.set_num_threads(1)
+    torch.set_grad_enabled(False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=4, rank=rank)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    found = {}
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    def put(t, *pl):
+        return distribute_tensor(t, mesh, list(pl))
+
+    def err(got, want):
+        got = got.full_tensor() if isinstance(got, DTensor) else got
+        return float((got.double() - want.double()).abs().max())
+
+    def attention(name, B, nq, nkv, pl, S=64, chunk=16):
+        q, k, v = rnd(B, S, nq, 8), rnd(B, S, nkv, 8), rnd(B, S, nkv, 8)
+        want = att._chunked_attention(q, k, v, causal=True, q_chunk=chunk,
+                                      kv_chunk=chunk)
+        if pl == "partial":  # the model axis' rank 0 holds the sum
+            m = mesh.get_coordinate()[1]
+            ts = [DTensor.from_local(
+                (t if m == 0 else torch.zeros_like(t)).chunk(2)[
+                    mesh.get_coordinate()[0]].contiguous(),
+                mesh, [Shard(0), Partial()], run_check=False)
+                for t in (q, k, v)]
+        else:
+            ts = [put(t, *pl) for t in (q, k, v)]
+        with implicit_replication():
+            got = att._chunked_attention(*ts, causal=True, q_chunk=chunk,
+                                         kv_chunk=chunk)
+        found[name] = err(got, want)
+
+    attention("attention_batch_heads", 4, 4, 2, (Shard(0), Shard(2)))
+    attention("attention_partial_rows", 2, 2, 1, "partial")
+    attention("attention_sequence", 4, 4, 2, (Shard(0), Shard(1)))
+
+    B, S, nh, hp, N = 4, 512, 4, 8, 16
+    dt = torch.nn.functional.softplus(rnd(B, S, nh))
+    A = -torch.exp(rnd(nh))
+    xh, Bc, Cc = (rnd(B, S, nh, hp, dtype=torch.bfloat16),
+                  rnd(B, S, N, dtype=torch.bfloat16),
+                  rnd(B, S, N, dtype=torch.bfloat16))
+    for name, h0 in (("ssd", None), ("ssd_state", rnd(B, nh, hp, N))):
+        want = ssm._ssd_chunked(dt, A, xh, Bc, Cc, h0, 256)
+        args = (put(dt, Shard(0), Shard(2)), put(A, Replicate(), Shard(0)),
+                put(xh, Shard(0), Replicate()), put(Bc, Shard(0), Replicate()),
+                put(Cc, Shard(0), Replicate()),
+                None if h0 is None else put(h0, Shard(0), Shard(1)))
+        with implicit_replication():
+            got = ssm._ssd_chunked(*args, 256)
+        found[name] = max(err(g, w) for g, w in zip(got, want))
+
+    # whole modules, weights on the training rules' layout
+    for arch, S in (("llama3.2-1b", 64), ("zamba2-7b", 512)):
+        cfg = get_config(arch, smoke=True)
+        plain = draw_weights(empty_model(cfg, "cpu"),
+                             torch.Generator().manual_seed(1))
+        shapes, axes = abstract_model(cfg)
+        sharded = empty_model(cfg, "cpu")
+        sharded.load_state_dict(plain.state_dict())
+        shard_model(sharded, shd.tree_shardings(
+            shd.train_compute_rules(mesh), shapes, axes))
+        x = rnd(4, S, cfg.d_model)
+        if arch == "llama3.2-1b":
+            pos = torch.arange(S, dtype=torch.int32)[None].expand(4, S)
+            want = plain.blocks[0].attn(x, pos, q_chunk=16, kv_chunk=16)[0]
+            with implicit_replication():
+                got = sharded.blocks[0].attn(
+                    put(x, Shard(0), Replicate()), pos, q_chunk=16,
+                    kv_chunk=16)[0]
+            name = "attention_forward"
+        else:
+            want = ssm.mamba2_block(cfg, plain.blocks[0].ssm, x)[0]
+            with implicit_replication():
+                got = ssm.mamba2_block(cfg, sharded.blocks[0].ssm,
+                                       put(x, Shard(0), Replicate()))[0]
+            name = "mamba2_block"
+        found[name] = err(got, want) / float(want.abs().max())
+
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def main():
+    sys.modules["jax"] = None  # the port must not need it
+    import torch.multiprocessing as mp
+    mp.spawn(rank_main, args=(int(sys.argv[1]), sys.argv[2]), nprocs=4,
+             join=True)
+
+
+if __name__ == "__main__":
+    main()
