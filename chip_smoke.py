@@ -155,8 +155,8 @@ just before and read just after:
   phase 15 (after phase 14's timings) and run on the host beside (a)
   and (b): every cell exits 0,
   FLOPs, collectives and ``argument_bytes`` equal across the two devices,
-  the single-pod cell's FLOPs 2.701792e14 per device (the count the
-  chunk loops on local shards keep); per-device FLOPs, bytes,
+  the single-pod cell's FLOPs 8.051346e13 per device (the attention on
+  each rank's own q heads); per-device FLOPs, bytes,
   collectives and memory printed.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
@@ -2848,9 +2848,9 @@ DRYRUN_CELL = ("qwen2-0.5b", "decode_32k")
 TRAIN_DRYRUN_CELL = ("llama3.2-1b", "train_4k")  # phase 15 (c)
 TRAIN_DRYRUN_TIMEOUT_S = 600  # from its start in phase 15
 # (c)'s per-device FLOPs on the single-pod mesh (256 ranks), to the 7
-# digits the CPU sweep and earlier card runs read: the local chunk loops
-# dispatch the operators DTensor dispatched in them
-TRAIN_DRYRUN_FLOPS = "2.701792e+14"
+# digits the CPU sweep reads: the attention runs each rank's own q heads
+# (2 of 32), and so does the gradient of ``wo``
+TRAIN_DRYRUN_FLOPS = "8.051346e+13"
 DRYRUN_MESHES = ("single", "multi")
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine

@@ -32,10 +32,10 @@ import dataclasses
 from typing import Any, Optional, Union
 
 import torch
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
-from torch.distributed.tensor.experimental import local_map
 
 AxisSpec = Union[str, tuple, None]
 
@@ -399,7 +399,7 @@ def grad_batch_only(t):
     return _relaid(t, _same, batch_only)
 
 
-def _split_names(ts, dims, sizes, mesh) -> list:
+def _split_names(ts, dims, sizes, mesh, uneven=()) -> list:
     """Per mesh dimension, the logical dimension (a key of ``sizes``) that
     it splits in every tensor of ``ts`` that has it, or None (all
     replicated there); see ``on_local_shards``."""
@@ -421,8 +421,11 @@ def _split_names(ts, dims, sizes, mesh) -> list:
             choice = list(seen)
         else:
             choice = []
+        # a split the operands already hold may be uneven (DTensor's chunk
+        # rule) where it is the only split of its dimension
         n = next((n for n in choice
-                  if sizes[n] % (ways[n] * mesh.size(j)) == 0), None)
+                  if sizes[n] % (ways[n] * mesh.size(j)) == 0
+                  or (n in uneven and n in seen and ways[n] == 1)), None)
         if n is not None:
             ways[n] *= mesh.size(j)
         names.append(n)
@@ -433,17 +436,27 @@ def _placed(names, d) -> tuple:
     return tuple(Shard(d[n]) if n in d else Replicate() for n in names)
 
 
+def _ways(mesh, names, name) -> int:
+    """How many ways the mesh dimensions ``names`` gives split ``name``."""
+    ways = 1
+    for j, n in enumerate(names):
+        if n == name:
+            ways *= mesh.size(j)
+    return ways
+
+
 def _offset(mesh, names, name, size) -> int:
     """This rank's first index along logical dimension ``name`` (of
     ``size``), split over the mesh dimensions ``names`` gives it, in mesh
-    order."""
-    idx, ways = 0, 1
+    order, by DTensor's chunk rule: ceil(size / ways) a rank, the last
+    ranks holding fewer or none (an uneven split has one mesh dimension).
+    The rank's count is its local shard's length."""
+    idx = 0
     coord = mesh.get_coordinate()
     for j, n in enumerate(names):
         if n == name:
             idx = idx * mesh.size(j) + coord[j]
-            ways *= mesh.size(j)
-    return idx * (size // ways)
+    return min(idx * -(-size // _ways(mesh, names, name)), size)
 
 
 def _laid_out(t, pl):
@@ -463,7 +476,8 @@ def _laid_out(t, pl):
     return t
 
 
-def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), **kw):
+def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), uneven=(),
+                    **kw):
     """``fn(*ts, **kw)`` run on each rank's local shards, for a function of
     many small operators (a loop over chunks) that DTensor would otherwise
     lay out operator by operator.
@@ -480,12 +494,15 @@ def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), **kw):
     own choice for such products is, and anything else (a split of a
     dimension ``fn`` does not take apart, as a sequence that ``fn``
     chunks and masks by its global positions, or operands that disagree)
-    is gathered once.  The operands are then redistributed once
-    (``_laid_out``), and ``fn`` runs on the local shards through
-    ``local_map``.  ``ts`` may hold None (an absent operand).  For
-    each name in ``offsets`` ``fn`` receives the keyword ``<name>0``, the
-    rank's first index along it (0 where it is not split).  Plain tensors
-    call ``fn`` directly."""
+    is gathered once.  A name in ``uneven`` may stay split unevenly
+    (DTensor's chunk rule) over the one mesh dimension that splits it;
+    ``fn`` then gets local shards of unequal lengths, some empty.  The
+    operands are then redistributed once (``_laid_out``), and ``fn`` runs
+    on the local shards, whose results become DTensors of the global
+    shape.  ``ts`` may hold None (an absent operand).  For each name in
+    ``offsets`` ``fn`` receives the keyword ``<name>0``, the rank's first
+    index along it (0 where it is not split).  Plain tensors call ``fn``
+    directly."""
     if not any(isinstance(t, DTensor) for t in ts):
         return fn(*ts, **kw, **{n + "0": 0 for n in offsets})
     mesh = next(t.device_mesh for t in ts if isinstance(t, DTensor))
@@ -494,18 +511,84 @@ def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), **kw):
                              run_check=False) for t in ts]
     live = [(t, d) for t, d in zip(ts, dims) if t is not None]
     names = _split_names([t for t, _ in live], [d for _, d in live], sizes,
-                         mesh)
+                         mesh, uneven)
     kw.update({n + "0": _offset(mesh, names, n, sizes[n]) for n in offsets})
-    ts = [None if t is None else _laid_out(t, _placed(names, d))
-          for t, d in zip(ts, dims)]
-    # one output's placements a list: local_map reads a tuple as one
-    # placement sequence per output
-    outs = (list(_placed(names, out_dims)) if isinstance(out_dims, dict)
-            else tuple(_placed(names, d) for d in out_dims))
-    return local_map(
-        lambda *a: fn(*a, **kw), out_placements=outs,
-        in_placements=tuple(None if t is None else t.placements for t in ts),
-        device_mesh=mesh)(*ts)
+    local = []
+    for t, d in zip(ts, dims):
+        if t is not None:
+            pl = _placed(names, d)
+            # an operand whole on a mesh dimension that splits the others
+            # meets every rank's share: its gradient is their Partial sum
+            t = _laid_out(t, pl).to_local(grad_placements=tuple(
+                Partial() if n is not None and n not in d else p
+                for n, p in zip(names, pl)))
+        local.append(t.wait() if isinstance(t, AsyncCollectiveTensor) else t)
+    out = fn(*local, **kw)
+    uneven_names = {n for n in uneven
+                    if sizes[n] % _ways(mesh, names, n)}
+
+    def dist(o, d):
+        shape = stride = None
+        if any(n in uneven_names for n in d):
+            # from_local assumes even shards: the global shape given
+            shape = list(o.shape)
+            for n in set(names) & set(d):
+                shape[d[n] % o.ndim] = sizes[n]
+            stride = [1] * len(shape)
+            for i in range(len(shape) - 2, -1, -1):
+                stride[i] = stride[i + 1] * shape[i + 1]
+            shape, stride = torch.Size(shape), tuple(stride)
+        return DTensor.from_local(o, mesh, _placed(names, d),
+                                  run_check=False, shape=shape, stride=stride)
+
+    if isinstance(out_dims, dict):
+        return dist(out, out_dims)
+    return tuple(dist(o, d) for o, d in zip(out, out_dims))
+
+
+def _model_dim(t, groups: int):
+    """The index of the ``model`` mesh axis of DTensor ``t`` where that
+    axis has more than one rank and does not divide ``groups``, else
+    None."""
+    if not isinstance(t, DTensor):
+        return None
+    names = list(mesh_shape(t.device_mesh))
+    if "model" not in names:
+        return None
+    j = names.index("model")
+    size = t.device_mesh.size(j)
+    return j if size > 1 and groups % size else None
+
+
+def splits_q_heads(t, groups: int) -> bool:
+    """Whether ``t`` lies on a mesh whose ``model`` axis cannot split
+    whole groups of the ``groups`` kv heads (``split_q_heads``)."""
+    return _model_dim(t, groups) is not None
+
+
+def split_q_heads(t, dim: int, groups: int, *, replicated: bool = True):
+    """(``t``, True) with its query-head dimension ``dim`` split over the
+    ``model`` mesh axis where that axis cannot split whole groups of the
+    ``groups`` kv heads, as the reference shards q on heads and replicates
+    k/v (GSPMD pads an uneven head count; here DTensor's chunk rule gives
+    a rank ceil(heads / model) heads and the last ranks fewer or none).
+    One already split there keeps its split; with ``replicated`` a
+    replicated ``t`` is sliced locally, with no collective.  (``t``,
+    False) otherwise: a plain tensor, a model axis of 1 or one that
+    divides ``groups``, or ``t`` laid out otherwise there (a Partial sum,
+    another split dimension)."""
+    j = _model_dim(t, groups)
+    if j is None:
+        return t, False
+    dim %= t.ndim
+    p = t.placements[j]
+    if isinstance(p, Shard) and p.dim == dim:
+        return t, True
+    if not (replicated and isinstance(p, Replicate)):
+        return t, False
+    pl = list(t.placements)
+    pl[j] = Shard(dim)
+    return t.redistribute(t.device_mesh, pl), True
 
 
 def tree_map(fn, tree, *rest):

@@ -19,8 +19,9 @@ from torch import nn
 
 from torch.distributed.tensor import DTensor
 
-from ..dist.sharding import (constrain, grad_whole_dim, local_write,
-                             on_local_shards, whole_dim)
+from ..dist.sharding import (batch_only, constrain, grad_whole_dim,
+                             local_write, on_local_shards, split_q_heads,
+                             splits_q_heads, whole_dim)
 from .common import apply_rope, dtype_of, einsum, matmul, recompute
 
 NEG_INF = -1e30
@@ -83,9 +84,11 @@ class Attention(nn.Module):
         out = _chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                                  kv_chunk=kv_chunk)
         B, S = x.shape[:2]
-        # the gradient from ``wo`` splits back into whole heads
-        # (``grad_whole_dim``)
-        out = grad_whole_dim(out.reshape(B, S, -1), -1, self.cfg.n_heads)
+        # heads split unevenly over the model axis are gathered before they
+        # flatten into ``wo``'s rows (``whole_dim``); the gradient from
+        # ``wo`` splits back into whole heads (``grad_whole_dim``)
+        out = whole_dim(out, 2, self.cfg.n_heads).reshape(B, S, -1)
+        out = grad_whole_dim(out, -1, self.cfg.n_heads)
         return matmul(out, self.wo), (k, v)
 
     def decode(self, x, cache, pos, *, rope: bool = True):
@@ -98,6 +101,10 @@ class Attention(nn.Module):
         g = nq // nkv
         pos = torch.as_tensor(pos, device=x.device)
         per_slot = pos.ndim == 1
+        if splits_q_heads(x, nkv):
+            # the products take the local columns of ``wq``/``wk``/``wv``
+            # (DTensor would gather ``wk``/``wv`` to meet a Partial ``x``)
+            x = batch_only(x)
         q, k, v = self.project_qkv(x)
         if rope:
             pp = (pos[:, None] if per_slot else pos.expand(B, 1)).to(torch.int32)
@@ -108,6 +115,17 @@ class Attention(nn.Module):
                 _scatter_rows(cache[name], pos, new[:, 0])
             else:
                 _update_slice(cache[name], new, pos)
+        q, by_q_head = split_q_heads(q, 2, nkv)
+        if by_q_head:
+            # each rank scores its own q heads against the kv heads they
+            # read (the cache whole on the model axis)
+            out = on_local_shards(
+                _decode_q_heads, (q * hd ** -0.5, cache["k"], cache["v"]),
+                ({"batch": 0, "qheads": 2}, {"batch": 0}, {"batch": 0}),
+                {"batch": B, "qheads": nq}, {"batch": 0, "qheads": 2},
+                offsets=("qheads",), uneven=("qheads",), bound=pos, group=g)
+            out = whole_dim(out, 2, nq).reshape(B, 1, nq * hd)
+            return matmul(out, self.wo), cache
         S = cache["k"].shape[1]
         qh = (whole_dim(q, 2, nkv) * hd ** -0.5).reshape(B, nkv, g, hd)
         s = einsum("bkgh,bskh->bkgs", qh, cache["k"]).to(torch.float32)
@@ -118,6 +136,33 @@ class Attention(nn.Module):
         out = einsum("bkgs,bskh->bkgh", w.to(cache["v"].dtype), cache["v"])
         out = out.reshape(B, 1, nq * hd)
         return matmul(out, self.wo), cache
+
+
+def _kv_runs(h0: int, n: int, group: int) -> list:
+    """The q heads [h0, h0 + n) in runs that read one kv head (head h reads
+    h // group): (kv head, first, end), first and end counted from h0."""
+    runs, h = [], h0
+    while h < h0 + n:
+        end = min(h0 + n, (h // group + 1) * group)
+        runs.append((h // group, h - h0, end - h0))
+        h = end
+    return runs
+
+
+def _decode_q_heads(q, k, v, *, bound, group: int, qheads0: int):
+    """One-token attention of a rank's q heads [qheads0, qheads0 + n), q
+    (B, 1, n, hd) scaled, against the whole cache k/v (B, S, nkv, hd):
+    each run of heads against the kv head it reads, keys past ``bound``
+    masked -> (B, 1, n, hd)."""
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for j, a, b in _kv_runs(qheads0, q.shape[2], group):
+        s = einsum("bgh,bsh->bgs", q[:, 0, a:b], k[:, :, j]).to(torch.float32)
+        w = torch.softmax(torch.where(kv_pos <= bound, s, NEG_INF), dim=-1)
+        outs.append(einsum("bgs,bsh->bgh", w.to(v.dtype), v[:, :, j]))
+    if not outs:  # a rank past the last head
+        return q.new_zeros(q.shape, dtype=v.dtype)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, 1))[:, None]
 
 
 def _scatter_rows(buf, pos, rows):
@@ -225,9 +270,11 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     q is split into (B, chunks, rows, nq, hd) and the chunk loops run on
     plain tensors (``_attend``).  DTensors are laid out once and the
     loops run on each rank's local shards (``dist.sharding.
-    on_local_shards``): batch, whole kv-head groups and the rows of every
-    q chunk may stay split (the rows where Partial operands split neither
-    of the others, as DTensor's own choice splits them); the chunks of a
+    on_local_shards``): batch, whole kv-head groups, q's own heads (where
+    the model axis cannot split whole groups; k/v whole there) and the
+    rows of every q chunk may stay split (the rows where Partial operands
+    split neither of the others, as DTensor's own choice splits them); the
+    chunks of a
     split sequence are gathered once, as the KV loop reads all of k and v
     and the causal mask global positions.  Without this DTensor would lay
     out every operator of every KV step anew."""
@@ -238,25 +285,43 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     # a DTensor's sequence splits into chunks along whole shards
     # (``whole_dim``)
     q = whole_dim(q, 1, nqc).reshape(B, nqc, q_chunk, nq, hd)
-    qd, kd = {"batch": 0, "heads": 3, "rows": 2}, {"batch": 0, "heads": 2}
-    ad = {"batch": 0, "heads": 2, "rows": 4}
-    acc, l = on_local_shards(
-        _attend, (q, k, v), (qd, kd, kd),
-        {"batch": B, "heads": nkv, "rows": q_chunk}, (ad, ad),
-        offsets=("rows",), causal=causal, q_chunk=q_chunk,
-        kv_chunk=kv_chunk)
+    # a q split on its heads where the model axis cannot split whole
+    # kv-head groups (the GQA pinning; sequence parallelism where the heads
+    # divide the axis): each rank runs its own q heads against the kv
+    # heads they read.  A replicated q (heads that do not divide the axis
+    # under sequence parallelism) stays whole, as ROADMAP Queue 3 says
+    q, by_q_head = split_q_heads(q, 3, nkv, replicated=False)
+    if by_q_head:
+        qd, kd = {"batch": 0, "qheads": 3, "rows": 2}, {"batch": 0}
+        ad = {"batch": 0, "qheads": 2, "rows": 3}
+        sizes = {"batch": B, "qheads": nq, "rows": q_chunk}
+        kw = dict(offsets=("rows", "qheads"), uneven=("qheads",),
+                  group=nq // nkv)
+    else:
+        qd, kd = {"batch": 0, "heads": 3, "rows": 2}, {"batch": 0, "heads": 2}
+        ad = {"batch": 0, "heads": 2, "rows": 4}
+        sizes = {"batch": B, "heads": nkv, "rows": q_chunk}
+        kw = dict(offsets=("rows",))
+    acc, l = on_local_shards(_attend, (q, k, v), (qd, kd, kd), sizes,
+                             (ad, ad), causal=causal, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk, **kw)
     # the division after the loops, by DTensor's operators: a Partial
     # gradient from the output projection is summed after its backward,
     # as when the loops ran on DTensors; the rows gathered once
-    out = (acc / l[..., None]).permute(0, 1, 4, 2, 3, 5)
+    out = acc / l[..., None]
+    out = (out.permute(0, 1, 3, 2, 4) if by_q_head
+           else out.permute(0, 1, 4, 2, 3, 5))
     out = whole_dim(out.reshape(B, nqc, q_chunk, nq, hd), 2)
-    # the gradient splits back into (nkv, g) along whole shards
-    # (``grad_whole_dim``)
-    return grad_whole_dim(out.reshape(B, Sq, nq, hd), 2, nkv).to(v.dtype)
+    out = out.reshape(B, Sq, nq, hd)
+    if not by_q_head:
+        # the gradient splits back into (nkv, g) along whole shards
+        # (``grad_whole_dim``)
+        out = grad_whole_dim(out, 2, nkv)
+    return out.to(v.dtype)
 
 
 def _attend(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
-            rows0: int):
+            rows0: int, qheads0=None, group: int = 1):
     """``_chunked_attention``'s loops on plain tensors: q (B, nqc, rows,
     nq, hd), rows ``rows0`` onward of each chunk of ``q_chunk``; returns
     the online softmax's acc (B, nqc, nkv, g, rows, hd) and l (B, nqc,
@@ -270,7 +335,24 @@ def _attend(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
     the reference checkpoints ``per_q_chunk`` and ``kv_step``: the
     backward pass recomputes every (q, kv) chunk pair's scores instead of
     keeping them.
+
+    With ``qheads0`` q holds a rank's own q heads [qheads0, qheads0 + n)
+    (``split_q_heads``) and k/v every kv head: each run of q heads that
+    read one kv head (head h reads h // ``group``) runs against it alone,
+    and acc (B, nqc, n, rows, hd) and l (B, nqc, n, rows) come per q
+    head.  A rank past the last head runs none against kv head 0, so that
+    its gradients take part in the backward's collectives.
     """
+    if qheads0 is not None:
+        B, nqc, rows, n, hd = q.shape
+        runs = _kv_runs(qheads0, n, group) or [(0, 0, 0)]
+        parts = [_attend(q[:, :, :, a:b], k[:, :, j:j + 1], v[:, :, j:j + 1],
+                         causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                         rows0=rows0) for j, a, b in runs]
+        acc, l = ([t.flatten(2, 3) for t in ts] for ts in zip(*parts))
+        if len(parts) == 1:
+            return acc[0], l[0]
+        return torch.cat(acc, 2), torch.cat(l, 2)
     B, nqc, rows, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     g = nq // nkv

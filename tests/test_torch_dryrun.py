@@ -32,7 +32,13 @@ llama3.2-1b and qwen2-0.5b SMOKE ``train_4k`` at edge 4 (sequence
 parallel; 4 and 2 q heads over 4 ways), falcon-mamba-7b SMOKE at edge 16
 and phi3.5-moe SMOKE with its 32 q and 8 kv heads (d_model 256) at edge
 16 under ZeRO-3, as its production cell runs.  Each must run and write
-the reference's JSON keys."""
+the reference's JSON keys.
+
+Where the kv heads do not divide the model axis, each rank runs the
+attention of its own q heads: qwen2-0.5b ``decode_32k`` at (4, 4) within
+1.12x the reference's per-device FLOPs, and the llama3.2-1b cut's
+attention products at edge 4 at most a sixteenth of its count at one
+rank (a (1, 1) run of the cut, started with the others)."""
 import json
 import os
 import pathlib
@@ -57,6 +63,8 @@ TRAIN_CUTS = {
     "phi3.5-moe-42b-a6.6b": ("16", dict(n_heads=32, n_kv_heads=8,
                                         d_model=256, fsdp=True)),
 }
+# its 2 kv heads do not divide the model axis (4): q splits on its heads
+HEADS_CUT = "llama3.2-1b"
 CONVS = {"aten.convolution", "aten._convolution", "aten.convolution_backward",
          "aten.cudnn_convolution", "aten.convolution_overrideable",
          "aten._slow_conv2d_forward"}
@@ -85,6 +93,10 @@ def runs(tmp_path_factory):
         jobs[f"cut:{arch}"] = (scale, [
             sys.executable, worker, arch, "train_4k", "single",
             json.dumps(cut), str(out / "cuts")])
+    # the q-head split's cell at one rank: nothing split
+    jobs[f"cut1:{HEADS_CUT}"] = ("1", [
+        sys.executable, worker, HEADS_CUT, "train_4k", "single",
+        json.dumps(TRAIN_CUTS[HEADS_CUT][1]), str(out / "cuts1")])
     procs = {}
     for name, (scale, cmd) in jobs.items():
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -96,7 +108,7 @@ def runs(tmp_path_factory):
     logs = {}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
-        if name.startswith("cut:"):  # each cut's test reports its own
+        if name.startswith("cut"):  # each cut's test reports its own
             logs[name] = (p.returncode, stderr)
             continue
         assert p.returncode == 0, f"{name}:\n{stderr[-3000:]}"
@@ -156,6 +168,18 @@ def test_per_device_flops_count_local_shards(runs):
           f"{f4 / r4['loop_aware']['flops']:.4f}")
 
 
+def test_decode_attention_runs_each_ranks_own_heads(runs):
+    """qwen2-0.5b's 2 kv heads do not divide the model axis (4): each rank
+    scores its own q heads, ceil(14 / 4) = 4 on this rank, against the
+    cache, and projects k/v on its own columns; the reference's program
+    splits the same contractions.  Rank 0's 4 of 14 heads put the port at
+    1.106x the reference's per-device FLOPs (every head on every rank:
+    3.23x)."""
+    f4 = load(runs, "port4")["loop_aware"]["flops"]
+    r4 = load(runs, "ref4")["loop_aware"]["flops"]
+    assert f4 <= 1.12 * r4, f4 / r4
+
+
 def test_per_op_class_flops_equal_the_reference_at_one_rank(runs,
                                                              monkeypatch):
     from repro.launch import hlo_cost as R
@@ -186,6 +210,24 @@ def test_sweep_records_no_failure(runs):
     out, logs = runs
     assert json.loads((out / "port4" / "_failures.json").read_text()) == []
     assert "done: 1/1 cells OK" in logs["sweep"]
+
+
+def test_train_attention_runs_each_ranks_own_heads(runs):
+    """The llama3.2-1b SMOKE cut at edge 4 (4 q, 2 kv heads; sequence
+    parallel): a rank runs a quarter of the batch (data) and one of the 4
+    q heads (model), so its attention products (``bmm``) are at most a
+    sixteenth of the same cell's at one rank."""
+    out, logs = runs
+    for name in (f"cut:{HEADS_CUT}", f"cut1:{HEADS_CUT}"):
+        rc, stderr = logs[name]
+        assert rc == 0, stderr[-3000:]
+
+    def bmm(sub):
+        stem = f"{HEADS_CUT}__train_4k__single.ops.json"
+        return json.loads((out / sub / stem).read_text())["aten.bmm"]["flops"]
+
+    b4, b1 = bmm("cuts"), bmm("cuts1")
+    assert b4 > 0 and 16 * b4 <= b1, b1 / b4
 
 
 @pytest.mark.parametrize("arch", list(TRAIN_CUTS))

@@ -12,12 +12,19 @@ out once per call, not once per chunk.
 
 Values, on 4 gloo ranks (``tests/torch_local_shards_worker.py``, started
 at module start): the chunked attention split by batch and kv heads, by
-the rows of every q chunk (Partial operands that split neither) and with
-a split sequence, and the SSD split by heads and batch with and without
+the rows of every q chunk (Partial operands that split neither), with
+a split sequence, and split by q heads where the model axis cannot
+split whole kv-head groups (evenly at (2, 2), 2, 2, 2 and 0 heads at
+(1, 4)), and the SSD split by heads and batch with and without
 an initial state, each equal to the plain call on the whole tensors
 bitwise (every element is computed by the same operations on the same
 values); one ``Attention.forward`` and one ``mamba2_block`` within 1e-6 x
-max of the plain modules (their products sum float32 over other splits).
+max of the plain modules (their products sum float32 over other splits);
+and the gradients of the attention split by rows (Partial q/k/v) and by
+q heads (1e-6 x max: the k/v gradient is a float32 sum over ranks) and
+of the SSD (5e-2 x max: each rank's share of
+the gradient of A, Bc and Cc is rounded to bfloat16 in its chunks, and
+the shares are summed) against the plain call's.
 """
 import json
 import os
@@ -43,8 +50,10 @@ from repro_torch.models.registry import empty_model
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESHES = {(2, 2): ("data", "model"), (2, 2, 2): ("pod", "data", "model")}
 BITWISE = ("attention_batch_heads", "attention_partial_rows",
-           "attention_sequence", "ssd", "ssd_state")
+           "attention_sequence", "attention_q_heads",
+           "attention_q_heads_uneven", "ssd", "ssd_state")
 MODULE_TOL = 1e-6
+SSD_GRAD_TOL = 5e-2  # its chunks compute in bfloat16 (``ssm._ssd``)
 
 
 def free_port() -> int:
@@ -141,3 +150,14 @@ def test_local_loops_equal_the_plain_call(values, case):
 @pytest.mark.parametrize("case", ["attention_forward", "mamba2_block"])
 def test_sharded_modules_equal_the_plain_modules(values, case):
     assert values[case] <= MODULE_TOL
+
+
+@pytest.mark.parametrize("case,tol", [
+    ("attention_partial_rows_grad", MODULE_TOL),
+    ("attention_q_heads_grad", MODULE_TOL), ("ssd_grad", SSD_GRAD_TOL)])
+def test_local_loops_gradients_equal_the_plain_call(values, case, tol):
+    """An operand whole on a mesh dimension that splits the others gets a
+    Partial gradient: the attention's k/v under a split of the rows or of
+    the q heads, the SSD's A (over the data axis) and Bc/Cc (over the
+    model axis)."""
+    assert values[case] <= tol

@@ -13,7 +13,9 @@ the model axis (the GQA pinning), at (2, 2) with ``fsdp``, and of
 deepseek-moe-16b and falcon-mamba-7b SMOKE at (2, 2); then the backward
 where heads split unevenly: llama3.2-1b SMOKE, qwen2-0.5b SMOKE (its
 q/k/v biases) and a llama cut with 6 q heads (``cut``:
-``ModelConfig.with_`` fields) in sequence parallel at (1, 4), and
+``ModelConfig.with_`` fields) in sequence parallel at (1, 4), the same
+cut tensor parallel at (1, 4) (the pinned q split on its own heads, 2,
+2, 2 and 0 a rank), and
 falcon-mamba-7b SMOKE at (2, 2) over 1,024 tokens (``seq``), where the
 scan runs in chunks.  Tolerances: the
 loss within 2e-5 x |ref|, every master, m and v leaf within 1e-4 x max
@@ -34,7 +36,10 @@ reports the spread, and the test prints each leaf it widened.
 Serving cases run ``build_prefill_step`` on a zero cache and then four
 ``build_decode_step`` steps over that cache, for llama3.2-1b and
 whisper-medium SMOKE at (2, 2), in float32 (logits and cache leaves
-within 2e-5 x max) and bfloat16 (5e-2 x max)."""
+within 2e-5 x max) and bfloat16 (5e-2 x max), and in float32 at (1, 4),
+where the 2 kv heads do not divide the model axis and each rank runs its
+own q heads: llama3.2-1b SMOKE (4 q heads, 1 a rank) and the 6-head cut
+(2, 2, 2 and 0 a rank)."""
 import os
 import pathlib
 import pickle
@@ -73,14 +78,24 @@ TRAIN = [
     dict(name="qwen_seq_1x4", arch="qwen2-0.5b", mesh=(1, 4), mode="seq"),
     dict(name="llama6_seq_1x4", arch="llama3.2-1b", mesh=(1, 4), mode="seq",
          cut=dict(n_heads=6, n_kv_heads=2, d_model=96)),
+    # the GQA pinning's q split on its own heads unevenly (2, 2, 2 and 0)
+    dict(name="llama6_gqa_1x4", arch="llama3.2-1b", mesh=(1, 4),
+         cut=dict(n_heads=6, n_kv_heads=2, d_model=96)),
     # above the scan chunk (512): the chunked scan's write into its first
     # step, whose backward must not meet a Partial gradient
     dict(name="ssm_2x2_1k", arch="falcon-mamba-7b", mesh=(2, 2), seq=1024),
 ]
-SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype)
+SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
          for short, arch in (("llama", "llama3.2-1b"),
                              ("whisper", "whisper-medium"))
-         for dtype in ("float32", "bfloat16")]
+         for dtype in ("float32", "bfloat16")] + [
+    # kv heads that do not divide the model axis: each rank runs its own
+    # q heads, 1 a rank (SMOKE, 4 q / 2 kv), and 2, 2, 2 and 0 (6 q / 2 kv)
+    dict(name="llama_float32_1x4", arch="llama3.2-1b", dtype="float32",
+         mesh=(1, 4)),
+    dict(name="llama6_float32_1x4", arch="llama3.2-1b", dtype="float32",
+         mesh=(1, 4), cut=dict(n_heads=6, n_kv_heads=2, d_model=96)),
+]
 
 
 def free_port() -> int:
@@ -126,7 +141,7 @@ def train_cases():
 def serve_cases():
     rng = np.random.default_rng(7)
     for c in SERVE:
-        cfg = RC.get_config(c["arch"], smoke=True)
+        cfg = RC.get_config(c["arch"], smoke=True).with_(**c.get("cut", {}))
         params, _ = R_reg.init_model(cfg.with_(dtype="float32"),
                                      jax.random.key(3))
         if cfg.family == "encdec":
@@ -139,7 +154,7 @@ def serve_cases():
             positions = [20, 21, 22, 23]
         tokens = [rng.integers(0, cfg.vocab, (BATCH, 1)).astype(np.int32)
                   for _ in positions]
-        yield dict(c, kind="serve", mesh=(2, 2), seq=SEQ, batch=BATCH,
+        yield dict(c, kind="serve", seq=SEQ, batch=BATCH,
                    params=numpy_tree(params), inputs=inputs, tokens=tokens,
                    positions=positions)
 
@@ -251,7 +266,7 @@ def test_train_steps_match_reference(results, name):
 @pytest.mark.parametrize("name", [c["name"] for c in SERVE])
 def test_serving_steps_match_reference(results, name):
     ref, port = pair(results, name)
-    tol = SERVE_TOL[name.split("_")[1]]
+    tol = SERVE_TOL[next(c["dtype"] for c in SERVE if c["name"] == name)]
     assert_close(port["prefill_logits"], ref["prefill_logits"], tol,
                  "prefill logits")
     assert_close(port["prefill_cache"], ref["prefill_cache"], tol,

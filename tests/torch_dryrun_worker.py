@@ -9,7 +9,8 @@ changed by ``CUT`` (a JSON object of ``ModelConfig.with_`` fields, ``{}``
 for SMOKE itself; its ``fsdp``, if present, is the train step's ZeRO-3
 choice, which the production config makes by its size), with fake ``cpu``
 tensors.  The cell's JSON goes to
-``OUT/ARCH__SHAPE__MESH.json``.  Imports no JAX.
+``OUT/ARCH__SHAPE__MESH.json``, its counted operators to
+``OUT/ARCH__SHAPE__MESH.ops.json``.  Imports no JAX.
 """
 import json
 import sys
@@ -23,7 +24,8 @@ def main():
     cut = json.loads(cut)
     fsdp = cut.pop("fsdp", None)
     cfg = get_config(arch, smoke=True).with_(**cut)
-    dryrun.run_cell(arch, shape, mesh, out, device="cpu", cfg=cfg, fsdp=fsdp)
+    dryrun.run_cell(arch, shape, mesh, out, device="cpu", cfg=cfg, fsdp=fsdp,
+                    save_hlo=True)
 
 
 if __name__ == "__main__":

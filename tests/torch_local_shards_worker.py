@@ -9,12 +9,19 @@ largest absolute difference of the gathered outputs} to ``OUT`` as JSON.
 
 Cases: the chunked attention (``attention._chunked_attention``) with q,
 k and v split by batch and kv heads, as Partial sums that split neither
-(so by the rows of every q chunk, each rank at its own offset), and with
-the sequence split (gathered once); the SSD (``ssm._ssd_chunked``) with
+(so by the rows of every q chunk, each rank at its own offset), with
+the sequence split (gathered once), and with q split on its own heads
+where the model axis cannot split whole kv-head groups (k and v whole:
+6 q / 3 kv heads at (2, 2), runs of a rank's heads that read two kv
+heads; 6 q / 2 kv heads at (1, 4), 2, 2, 2 and 0 heads a rank, also
+with gradients); the SSD (``ssm._ssd_chunked``) with
 ``dt`` and ``A`` split by heads, the rest by batch, with and without an
-initial state; and one ``Attention.forward`` (llama3.2-1b SMOKE) and one
+initial state; one ``Attention.forward`` (llama3.2-1b SMOKE) and one
 ``mamba2_block`` (zamba2-7b SMOKE) with their weights laid out by the
-training rules, against the same modules on plain tensors.
+training rules, against the same modules on plain tensors; and the
+gradients of the chunked attention split by rows (Partial q/k/v, every
+rank's share) and by q heads at (1, 4), and of the SSD at (2, 2), against
+the plain call's.
 """
 import json
 import sys
@@ -54,11 +61,15 @@ def rank_main(rank, port, out_path):
         got = got.full_tensor() if isinstance(got, DTensor) else got
         return float((got.double() - want.double()).abs().max())
 
-    def attention(name, B, nq, nkv, pl, S=64, chunk=16):
+    def attention(name, B, nq, nkv, pl, S=64, chunk=16, kv_pl=None,
+                  on=mesh):
         q, k, v = rnd(B, S, nq, 8), rnd(B, S, nkv, 8), rnd(B, S, nkv, 8)
         want = att._chunked_attention(q, k, v, causal=True, q_chunk=chunk,
                                       kv_chunk=chunk)
-        if pl == "partial":  # the model axis' rank 0 holds the sum
+        if kv_pl is not None:  # q and k/v laid out apart
+            ts = [distribute_tensor(t, on, list(p))
+                  for t, p in ((q, pl), (k, kv_pl), (v, kv_pl))]
+        elif pl == "partial":  # the model axis' rank 0 holds the sum
             m = mesh.get_coordinate()[1]
             ts = [DTensor.from_local(
                 (t if m == 0 else torch.zeros_like(t)).chunk(2)[
@@ -75,7 +86,6 @@ def rank_main(rank, port, out_path):
     attention("attention_batch_heads", 4, 4, 2, (Shard(0), Shard(2)))
     attention("attention_partial_rows", 2, 2, 1, "partial")
     attention("attention_sequence", 4, 4, 2, (Shard(0), Shard(1)))
-
     B, S, nh, hp, N = 4, 512, 4, 8, 16
     dt = torch.nn.functional.softplus(rnd(B, S, nh))
     A = -torch.exp(rnd(nh))
@@ -91,7 +101,6 @@ def rank_main(rank, port, out_path):
         with implicit_replication():
             got = ssm._ssd_chunked(*args, 256)
         found[name] = max(err(g, w) for g, w in zip(got, want))
-
     # whole modules, weights on the training rules' layout
     for arch, S in (("llama3.2-1b", 64), ("zamba2-7b", 512)):
         cfg = get_config(arch, smoke=True)
@@ -118,6 +127,83 @@ def rank_main(rank, port, out_path):
                                        put(x, Shard(0), Replicate()))[0]
             name = "mamba2_block"
         found[name] = err(got, want) / float(want.abs().max())
+
+    # (drawn after the cases above, whose draws stay as they were)
+    # q split on its own heads where the model axis cannot split whole
+    # kv-head groups: 6 q heads over 2 ranks, 3 a rank, which read 2 kv
+    # heads each (3 kv heads, 2 q heads each); and 6 q / 2 kv heads over
+    # a (1, 4) mesh: 2, 2, 2 and 0 q heads
+    attention("attention_q_heads", 4, 6, 3, (Shard(0), Shard(2)),
+              kv_pl=(Shard(0), Replicate()))
+    row = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    attention("attention_q_heads_uneven", 2, 6, 2, (Replicate(), Shard(2)),
+              kv_pl=(Replicate(), Replicate()), on=row)
+
+    def grads(fn, plain, placed, on=mesh):
+        """The gradients of sum(fn(*ts) * w), w a fixed draw, of the plain
+        tensors and of the same laid out on ``placed``, the largest
+        difference over the largest plain gradient."""
+        with torch.enable_grad():
+            ts = [t.clone().requires_grad_() for t in plain]
+            out = fn(*ts)
+            ws = [rnd(*o.shape) for o in out]
+            want = torch.autograd.grad(
+                sum((o.float() * w).sum() for o, w in zip(out, ws)), ts)
+            ds = [distribute_tensor(t, on, list(pl)).requires_grad_()
+                  for t, pl in zip(plain, placed)]
+            with implicit_replication():
+                out = fn(*ds)
+                got = torch.autograd.grad(sum(
+                    (o.float() * distribute_tensor(w, on, list(o.placements))
+                     ).sum() for o, w in zip(out, ws)), ds)
+        return max(err(g, w) / float(w.abs().max())
+                   for g, w in zip(got, want))
+
+    # Partial q/k/v (split by the rows of each q chunk): each rank's k/v
+    # gradient covers its own rows, a Partial sum over the model axis; the
+    # gradient of a rank's share of a Partial input is the whole one
+    with torch.enable_grad():
+        plain = (rnd(2, 64, 2, 8), rnd(2, 64, 1, 8), rnd(2, 64, 1, 8))
+        w = rnd(2, 64, 2, 8)
+        ts = [t.clone().requires_grad_() for t in plain]
+        want = torch.autograd.grad((att._chunked_attention(
+            *ts, causal=True, q_chunk=16, kv_chunk=16) * w).sum(), ts)
+        d, m = mesh.get_coordinate()
+        shares = [(t if m == 0 else torch.zeros_like(t)).chunk(2)[d]
+                  .contiguous().requires_grad_() for t in plain]
+        with implicit_replication():
+            out = att._chunked_attention(
+                *(DTensor.from_local(t, mesh, [Shard(0), Partial()],
+                                     run_check=False) for t in shares),
+                causal=True, q_chunk=16, kv_chunk=16)
+            got = torch.autograd.grad(
+                (out * put(w, Shard(0), Replicate())).sum().full_tensor(),
+                shares)
+    worst = torch.tensor(max(
+        float((g - wt.chunk(2)[d]).abs().max() / wt.abs().max())
+        for g, wt in zip(got, want)))
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    found["attention_partial_rows_grad"] = float(worst)
+
+    # the backward of the q-head split: each rank's k/v gradient is a
+    # Partial sum over the model axis (uneven, 2, 2, 2 and 0 heads)
+    found["attention_q_heads_grad"] = grads(
+        lambda q, k, v: (att._chunked_attention(q, k, v, causal=True,
+                                                q_chunk=16, kv_chunk=16),),
+        (rnd(2, 64, 6, 8), rnd(2, 64, 2, 8), rnd(2, 64, 2, 8)),
+        ((Replicate(), Shard(2)), (Replicate(), Replicate()),
+         (Replicate(), Replicate())), on=row)
+
+    # the SSD's backward: A, Bc and Cc are whole on a mesh dimension that
+    # splits the others (batch, heads), so their gradients are Partial
+    # sums over it
+    found["ssd_grad"] = grads(
+        lambda *a: ssm._ssd_chunked(*a, 256),
+        (dt, A, xh.float(), Bc.float(), Cc.float(), rnd(B, nh, hp, N)),
+        ((Shard(0), Shard(2)), (Replicate(), Shard(0)),
+         (Shard(0), Replicate()), (Shard(0), Replicate()),
+         (Shard(0), Replicate()), (Shard(0), Shard(1))))
+
 
     if rank == 0:
         with open(out_path, "w") as f:

@@ -270,8 +270,10 @@ def port_rank(rank, port, cases, tmp, out_path):
                     k: torch.from_numpy(v) for k, v in case["inputs"].items()})
 
                 def host(tree):
+                    # a copy: a replicated leaf's local tensor is the
+                    # cache itself, which the decode steps write on
                     return _tree_numpy(shd.tree_map(
-                        lambda t: full(t).to(torch.float32), tree))
+                        lambda t: full(t).to(torch.float32).clone(), tree))
 
                 res["prefill_logits"] = full(logits).float().numpy()
                 res["prefill_cache"] = host(cache)
