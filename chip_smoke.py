@@ -157,7 +157,14 @@ just before and read just after:
   FLOPs, collectives and ``argument_bytes`` equal across the two devices,
   the single-pod cell's FLOPs 8.051346e13 per device (the attention on
   each rank's own q heads); per-device FLOPs, bytes,
-  collectives and memory printed.
+  collectives and memory printed; (d) ``launch/dryrun.py`` for
+  llama3.2-1b x ``prefill_32k`` cut to 2 layers at its published widths
+  (``--n-layers 2``) on the single-pod mesh, fake ``cuda`` and fake
+  ``cpu`` tensors, two subprocesses started with (c): FLOPs, collectives
+  and ``argument_bytes`` equal across the two devices, and the dense
+  products' (``aten.mm``) FLOPs per device equal to the CPU count,
+  9.964981e11 (each rank's share of every product: the serving prefill
+  sums each row-split product before the residual add).
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2852,6 +2859,13 @@ TRAIN_DRYRUN_TIMEOUT_S = 600  # from its start in phase 15
 # (2 of 32), and so does the gradient of ``wo``
 TRAIN_DRYRUN_FLOPS = "8.051346e+13"
 DRYRUN_MESHES = ("single", "multi")
+# phase 15 (d): the serving prefill at published widths, 2 layers, on the
+# single-pod mesh; its dense products' FLOPs per device, to the 7 digits
+# of the CPU count: 2 layers x 2 x 65,536 tokens x 60,817,408 weights /
+# 16, and the LM head over the rank's last tokens
+PREFILL_DRYRUN_CELL = ("llama3.2-1b", "prefill_32k")
+PREFILL_DRYRUN_LAYERS = 2
+PREFILL_DRYRUN_MM_FLOPS = "9.964981e+11"
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
 _CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
@@ -2867,31 +2881,35 @@ def _stop(procs):
 atexit.register(_stop, _CHILDREN)
 
 
-def start_dryruns(root, cell, sub, *, device="cuda", scale=16):
+def start_dryruns(root, cell, sub, *, device="cuda", scale=16,
+                  meshes=DRYRUN_MESHES, n_layers=None):
     """``launch/dryrun.py`` for ``cell`` on the single- and multi-pod
-    meshes at edge ``scale`` (256 and 512 fake ranks at 16), with
-    ``--device`` ``device`` and again with ``--device cpu``, each in its
-    own subprocess, all started now; fake tensors, nothing allocated.
-    Returns the running cells for ``collect_dryruns``."""
+    meshes (``meshes``) at edge ``scale`` (256 and 512 fake ranks at 16),
+    with ``--device`` ``device`` and again with ``--device cpu``, each in
+    its own subprocess, all started now; fake tensors, nothing allocated.
+    ``n_layers`` cuts the model's depth.  Returns the running cells for
+    ``collect_dryruns``."""
     out = root / "build" / "chip_smoke_dryrun" / sub
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     arch, shape = cell
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
                REPRO_DRYRUN_SCALE=str(scale), OMP_NUM_THREADS="1")
+    cut = [] if n_layers is None else ["--n-layers", str(n_layers)]
     procs = {}
-    for mesh in DRYRUN_MESHES:
+    for mesh in meshes:
         for dev in dict.fromkeys((device, "cpu")):
             log = out / f"{mesh}_{dev}.log"
             with open(log, "w") as f:
                 procs[mesh, dev] = subprocess.Popen(
                     [sys.executable, "-m", "repro_torch.launch.dryrun",
                      "--arch", arch, "--shape", shape, "--mesh", mesh,
-                     "--device", dev, "--save-hlo", "--out", str(out / dev)],
+                     "--device", dev, "--save-hlo", "--out", str(out / dev)]
+                    + cut,
                     env=env, cwd=root, stdout=f, stderr=subprocess.STDOUT)
             _CHILDREN.append(procs[mesh, dev])
     return dict(cell=cell, out=out, device=device, scale=scale, procs=procs,
-                t0=time.perf_counter())
+                meshes=meshes, t0=time.perf_counter())
 
 
 def collect_dryruns(tag, label, run, *, timeout):
@@ -2920,7 +2938,7 @@ def collect_dryruns(tag, label, run, *, timeout):
         _stop(run["procs"].values())
     wall = time.perf_counter() - run["t0"]
     stats = {}
-    for mesh in DRYRUN_MESHES:
+    for mesh in run["meshes"]:
         rec = cells[mesh, device]
         la = rec["loop_aware"]
         kinds = {k: int(v["count"]) for k, v in la["collectives"].items()}
@@ -2944,6 +2962,8 @@ def collect_dryruns(tag, label, run, *, timeout):
         assert rec["memory"]["argument_bytes"] == \
             twin["memory"]["argument_bytes"]
         stats[mesh] = dict(chips=rec["chips"], flops=la["flops"],
+                           mm_flops=rec["ops"].get("aten.mm", {}).get(
+                               "flops", 0.0),
                            bytes_hbm=la["bytes_hbm"], collectives=kinds,
                            collective_bytes=la["collective_bytes_total"],
                            argument_bytes=rec["memory"]["argument_bytes"],
@@ -3320,6 +3340,10 @@ def main() -> int:
     # (c)'s train cells run on the host beside (a) and (b), after phase
     # 14's host-clock timings
     train_dryrun = start_dryruns(root, TRAIN_DRYRUN_CELL, "train")
+    # (d)'s prefill cells beside them
+    prefill_dryrun = start_dryruns(root, PREFILL_DRYRUN_CELL, "prefill",
+                                   meshes=("single",),
+                                   n_layers=PREFILL_DRYRUN_LAYERS)
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
@@ -3331,6 +3355,15 @@ def main() -> int:
     print(f"[{tag}] phase 15 (c) {TRAIN_DRYRUN_CELL[0]} x "
           f"{TRAIN_DRYRUN_CELL[1]} single: {flops:.6e} FLOPs per device == "
           f"{TRAIN_DRYRUN_FLOPS}")
+    cost["prefill_dryrun"] = collect_dryruns(tag, "(d)", prefill_dryrun,
+                                             timeout=TRAIN_DRYRUN_TIMEOUT_S)
+    mm = cost["prefill_dryrun"]["single"]["mm_flops"]
+    assert f"{mm:.6e}" == PREFILL_DRYRUN_MM_FLOPS, (mm,
+                                                    PREFILL_DRYRUN_MM_FLOPS)
+    print(f"[{tag}] phase 15 (d) {PREFILL_DRYRUN_CELL[0]} cut to "
+          f"{PREFILL_DRYRUN_LAYERS} layers x {PREFILL_DRYRUN_CELL[1]} single:"
+          f" aten.mm {mm:.6e} FLOPs per device == {PREFILL_DRYRUN_MM_FLOPS} "
+          f"(all operators {cost['prefill_dryrun']['single']['flops']:.6e})")
     print(f"[{tag}] cost model: {json.dumps(cost)}")
     print(f"[{tag}] phase 15 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")

@@ -340,6 +340,21 @@ def batch_only(t):
     return t.redistribute(t.device_mesh, pl)
 
 
+def summed(t):
+    """``batch_only(t)`` where autograd records nothing (serving): the
+    output of a row-split product (``wo`` of the attention or the MLP), a
+    Partial sum over the model axis, all-reduced before the residual add,
+    as GSPMD sums it after Megatron's row-split products.  Left Partial,
+    the residual stream reaches the next norm and every column-split
+    product (``wq``/``wk``/``wv``/``wi``/``wg``) as a Partial sum, and
+    DTensor gathers the weight to compute the whole product on every
+    rank.  While autograd records (a train step) ``t`` passes unchanged,
+    and so does a plain tensor or one on a model axis of 1."""
+    if torch.is_grad_enabled():
+        return t
+    return batch_only(t)
+
+
 class _Relaid(torch.autograd.Function):
     """``fwd(t)``, whose backward lays the gradient out with ``bwd``."""
 

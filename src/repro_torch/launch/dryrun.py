@@ -281,9 +281,14 @@ def main(argv=None):
     ap.add_argument("--save-hlo", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu: the fake tensors' device")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model's depth to this many layers (its "
+                         "widths stay the published ones)")
     args = ap.parse_args(argv)
+    cfg = (None if args.n_layers is None
+           else get_config(args.arch).with_(n_layers=args.n_layers))
     run_cell(args.arch, args.shape, args.mesh, args.out,
-             save_hlo=args.save_hlo, device=args.device)
+             save_hlo=args.save_hlo, device=args.device, cfg=cfg)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..dist.sharding import summed
 from .attention import Attention, init_cache
 from .common import (Norm, draw_weights, dtype_of, einsum, lookup, matmul,
                      recompute, sinusoidal_positions, softmax_cross_entropy)
@@ -44,8 +45,11 @@ class EncBlock(nn.Module):
     def forward(self, x, positions, *, q_chunk, kv_chunk):
         h, _ = self.attn(self.ln1(x), positions, causal=False,
                          q_chunk=q_chunk, kv_chunk=kv_chunk, use_rope=False)
-        x = x + h
-        return x + self.mlp(self.ln2(x))
+        # serving sums each row-split product's Partial output before the
+        # residual add (``summed``): the next products, and the prefill's
+        # cross ``wk``/``wv`` on ``enc_out``, take the rank's own columns
+        x = x + summed(h)
+        return x + summed(self.mlp(self.ln2(x)))
 
 
 class DecBlock(nn.Module):
@@ -65,13 +69,15 @@ class DecBlock(nn.Module):
     def forward(self, x, positions, enc_out, *, q_chunk, kv_chunk):
         h, _ = self.self_attn(self.ln1(x), positions, q_chunk=q_chunk,
                               kv_chunk=kv_chunk, use_rope=False)
-        y = x + h
+        # serving sums each row-split product's Partial output before the
+        # residual add (``summed``), as ``EncBlock`` does
+        y = x + summed(h)
         # a float32 enc_out promotes a bfloat16 decoder's residual here
         h, _ = self.cross_attn(self.ln2(y), positions, causal=False,
                                xkv=enc_out, q_chunk=q_chunk,
                                kv_chunk=kv_chunk)
-        y = y + h
-        return y + self.mlp(self.ln3(y))
+        y = y + summed(h)
+        return y + summed(self.mlp(self.ln3(y)))
 
 
 class EncDec(nn.Module):

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..dist.sharding import local_write
+from ..dist.sharding import local_write, summed
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .common import (Norm, draw_weights, dtype_of, lookup, matmul,
@@ -80,13 +80,14 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, d_ff, device=device)
 
-    def _ffn(self, x):
+    def _ffn(self, x, sum_out=False):
         """The residual after the MLP or MoE, and the MoE's aux loss (None
-        for an MLP)."""
+        for an MLP).  With ``sum_out`` the output is ``summed`` first."""
         if hasattr(self, "mlp"):
-            return x + self.mlp(self.ln2(x)), None
-        out, aux = self.moe(self.ln2(x))
-        return x + out, aux
+            out, aux = self.mlp(self.ln2(x)), None
+        else:
+            out, aux = self.moe(self.ln2(x))
+        return x + (summed(out) if sum_out else out), aux
 
     def forward(self, x, positions, *, q_chunk, kv_chunk, cache=None,
                 q_spec=None, kv_spec=None):
@@ -100,7 +101,10 @@ class Block(nn.Module):
         if cache is not None:
             attn_mod._update_slice(cache["k"], k, 0)
             attn_mod._update_slice(cache["v"], v, 0)
-        return self._ffn(x + h)
+        # serving sums the Partial output of each row-split product before
+        # the residual add (``summed``), so that the next products take the
+        # rank's own columns of their weights
+        return self._ffn(x + summed(h), sum_out=True)
 
     def decode(self, x, cache, pos):
         h, _ = self.attn.decode(self.ln1(x), cache, pos)
@@ -121,7 +125,9 @@ class SSMBlock(nn.Module):
         """The reference's ``_ssm_block_fwd``: returns (x, final state)."""
         out, st = ssm_mod.block_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),
                                              state=state)
-        return x + out, st
+        # serving sums the mixer's row-split output before the residual
+        # add (``summed``), as ``Block`` does
+        return x + summed(out), st
 
     def decode(self, x, state):
         out, st = ssm_mod.decode_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),

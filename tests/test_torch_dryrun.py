@@ -38,7 +38,17 @@ Where the kv heads do not divide the model axis, each rank runs the
 attention of its own q heads: qwen2-0.5b ``decode_32k`` at (4, 4) within
 1.12x the reference's per-device FLOPs, and the llama3.2-1b cut's
 attention products at edge 4 at most a sixteenth of its count at one
-rank (a (1, 1) run of the cut, started with the others)."""
+rank (a (1, 1) run of the cut, started with the others).
+
+The serving prefill splits its dense products and its attention over the
+model axis: llama3.2-1b and qwen2-0.5b at their published widths, cut to
+2 layers over 1,024 tokens at batch 8 (``PREFILL_CUT``), each at edge 4
+and at one rank.  Per device at (4, 4) their dense products (``mm``) are
+at most 1.02x a sixteenth of the one-rank count (each row-split
+product's output is summed before the residual add, so every later
+product takes the rank's own columns), and qwen2-0.5b's attention
+(``bmm``) runs rank 0's 4 of its 14 q heads on a quarter of the batch (a
+replicated q split on its heads)."""
 import json
 import os
 import pathlib
@@ -65,6 +75,12 @@ TRAIN_CUTS = {
 }
 # its 2 kv heads do not divide the model axis (4): q splits on its heads
 HEADS_CUT = "llama3.2-1b"
+# the prefill's cuts: published widths, 2 layers, a short shape
+PREFILL_CUT = dict(published=True, n_layers=2, seq_len=1024, global_batch=8)
+PREFILL_ARCHS = ("llama3.2-1b", "qwen2-0.5b")
+# qwen2-0.5b: 14 q heads over 2 kv heads, which the model axis (4) does
+# not divide; rank 0 holds ceil(14 / 4) of them
+QWEN_HEADS, QWEN_RANK0_HEADS = 14, 4
 CONVS = {"aten.convolution", "aten._convolution", "aten.convolution_backward",
          "aten.cudnn_convolution", "aten.convolution_overrideable",
          "aten._slow_conv2d_forward"}
@@ -97,6 +113,11 @@ def runs(tmp_path_factory):
     jobs[f"cut1:{HEADS_CUT}"] = ("1", [
         sys.executable, worker, HEADS_CUT, "train_4k", "single",
         json.dumps(TRAIN_CUTS[HEADS_CUT][1]), str(out / "cuts1")])
+    for arch in PREFILL_ARCHS:
+        for scale, sub in (("4", "pre4"), ("1", "pre1")):
+            jobs[f"{sub}:{arch}"] = (scale, [
+                sys.executable, worker, arch, "prefill_32k", "single",
+                json.dumps(PREFILL_CUT), str(out / sub)])
     procs = {}
     for name, (scale, cmd) in jobs.items():
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -108,7 +129,7 @@ def runs(tmp_path_factory):
     logs = {}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
-        if name.startswith("cut"):  # each cut's test reports its own
+        if name.startswith(("cut", "pre")):  # each cut's test reports its own
             logs[name] = (p.returncode, stderr)
             continue
         assert p.returncode == 0, f"{name}:\n{stderr[-3000:]}"
@@ -242,3 +263,39 @@ def test_train_cells_where_the_backward_splits_unevenly(runs, arch):
     assert (cell["kind"], cell["chips"]) == ("train", edge * edge)
     assert cell["loop_aware"]["flops"] > 0
     assert cell["cost"]["flops"] == cell["loop_aware"]["flops"]
+
+
+def prefill_ops(runs, arch):
+    """The prefill cut's counted operators at edge 4 and at one rank."""
+    out, logs = runs
+    ops = []
+    for sub in ("pre4", "pre1"):
+        rc, stderr = logs[f"{sub}:{arch}"]
+        assert rc == 0, stderr[-3000:]
+        stem = f"{arch}__prefill_32k__single.ops.json"
+        ops.append(json.loads((out / sub / stem).read_text()))
+    return ops
+
+
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
+def test_prefill_dense_products_run_on_each_ranks_share(runs, arch):
+    """At (4, 4) a rank holds a quarter of the batch and of every
+    column- or row-split weight: its dense products are a sixteenth of
+    the one-rank count (the LM head over the last token included).  With
+    the residual stream left a Partial sum after a row-split product,
+    DTensor gathered the next layer's weights and ran those products
+    whole (1.155x for llama3.2-1b, 1.103x for qwen2-0.5b)."""
+    ops4, ops1 = prefill_ops(runs, arch)
+    mm4, mm1 = ops4["aten.mm"]["flops"], ops1["aten.mm"]["flops"]
+    assert mm4 <= 1.02 * mm1 / 16, 16 * mm4 / mm1
+
+
+def test_prefill_attention_runs_each_ranks_own_q_heads(runs):
+    """qwen2-0.5b's q reaches the prefill attention replicated (its 14
+    heads do not split 4 ways into whole columns of ``wq``): it is split
+    on its heads, rank 0 scoring its 4 of 14 on a quarter of the batch
+    (every head: a quarter of the one-rank ``bmm``)."""
+    ops4, ops1 = prefill_ops(runs, "qwen2-0.5b")
+    b4, b1 = ops4["aten.bmm"]["flops"], ops1["aten.bmm"]["flops"]
+    share = b1 / 4 * QWEN_RANK0_HEADS / QWEN_HEADS
+    assert 0 < b4 <= share * (1 + 1e-9), b4 / share

@@ -36,10 +36,18 @@ reports the spread, and the test prints each leaf it widened.
 Serving cases run ``build_prefill_step`` on a zero cache and then four
 ``build_decode_step`` steps over that cache, for llama3.2-1b and
 whisper-medium SMOKE at (2, 2), in float32 (logits and cache leaves
-within 2e-5 x max) and bfloat16 (5e-2 x max), and in float32 at (1, 4),
+within 2e-5 x max) and bfloat16 (5e-2 x max), for falcon-mamba-7b and
+zamba2-7b SMOKE at (2, 2) in float32, and in float32 at (1, 4),
 where the 2 kv heads do not divide the model axis and each rank runs its
 own q heads: llama3.2-1b SMOKE (4 q heads, 1 a rank) and the 6-head cut
-(2, 2, 2 and 0 a rank)."""
+(2, 2, 2 and 0 a rank).  The port's worker records the prefill's
+layouts: in every serving case the output of each row-split product
+(the attention's and the MLP's ``wo``, a Mamba mixer's ``out_proj``)
+reaches ``summed`` as a Partial sum, in every layer (the sum that lets
+the next layer's products take the rank's own columns), and at (1,
+4) every q reaching the chunked attention is split on its heads (the
+6-head cut's q arrives replicated, 6 heads in whole columns of ``wq``
+not splitting 4 ways; SMOKE's layer 1 took a Partial q before)."""
 import os
 import pathlib
 import pickle
@@ -95,6 +103,11 @@ SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
          mesh=(1, 4)),
     dict(name="llama6_float32_1x4", arch="llama3.2-1b", dtype="float32",
          mesh=(1, 4), cut=dict(n_heads=6, n_kv_heads=2, d_model=96)),
+    # the Mamba blocks' residual, and the hybrid's shared block after them
+    dict(name="falcon_float32", arch="falcon-mamba-7b", dtype="float32",
+         mesh=(2, 2)),
+    dict(name="zamba2_float32", arch="zamba2-7b", dtype="float32",
+         mesh=(2, 2)),
 ]
 
 
@@ -276,3 +289,39 @@ def test_serving_steps_match_reference(results, name):
         assert_close(a, b, tol, f"decode logits {i}")
     assert_close(port["decode_cache"], ref["decode_cache"], tol,
                  "decode cache")
+
+
+def row_split_products(case) -> int:
+    """The row-split products a prefill of ``case`` runs: two a
+    transformer block (an encoder block for whisper: its prefill runs
+    only the encoder), one a Mamba block, two at each of the hybrid's
+    shared-block call sites."""
+    cfg = RC.get_config(case["arch"], smoke=True).with_(**case.get("cut", {}))
+    if cfg.family == "encdec":
+        return 2 * cfg.n_enc_layers
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers + 2 * -(-cfg.n_layers // cfg.attn_every)
+    return 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in SERVE])
+def test_serving_prefill_sums_row_split_products(results, name):
+    """Each block sums the output of its row-split products before the
+    residual add (``summed``): every one, in every layer, is a Partial
+    sum there."""
+    _, port = pair(results, name)
+    flags = port["summed_partial"]
+    case = next(c for c in SERVE if c["name"] == name)
+    assert len(flags) == row_split_products(case), flags
+    assert all(flags), flags
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in SERVE
+                                  if c["mesh"] == (1, 4)])
+def test_serving_prefill_splits_q_on_its_heads(results, name):
+    """At (1, 4) the 2 kv heads do not divide the model axis: in every
+    layer's prefill attention each rank runs its own q heads."""
+    _, port = pair(results, name)
+    assert port["q_by_head"] == [True, True], port["q_by_head"]

@@ -16,10 +16,13 @@ losses; a case that raises records its error instead.
 
 Case kinds: ``train`` (two steps of ``build_train_step``), ``serve``
 (``build_prefill_step`` on a zero cache, then ``build_decode_step`` steps
-over that cache), ``restore`` (one step on a (4, 1) mesh, a checkpoint,
+over that cache; the port also records, in call order, whether each
+``summed`` of the prefill met a Partial sum and whether each q reaching
+its chunked attention was split on its heads), ``restore`` (one step on a (4, 1) mesh, a checkpoint,
 restored onto a 2-rank (2, 1) mesh, one more step) and ``resize`` (a
 ``Trainer`` on (4, 1) resized onto (2, 2), one more step).
 """
+import contextlib
 import os
 import pickle
 import sys
@@ -266,8 +269,11 @@ def port_rank(rank, port, cases, tmp, out_path):
                                               device="cpu")
                 steps.shard_model(model, pre.in_shardings[0])
                 cache = steps.init_cache(pre)
-                logits, cache = pre.fn(model, cache, {
-                    k: torch.from_numpy(v) for k, v in case["inputs"].items()})
+                with _prefill_layouts() as seen:
+                    logits, cache = pre.fn(model, cache, {
+                        k: torch.from_numpy(v)
+                        for k, v in case["inputs"].items()})
+                res.update(seen)
 
                 def host(tree):
                     # a copy: a replicated leaf's local tensor is the
@@ -298,6 +304,41 @@ def port_rank(rank, port, cases, tmp, out_path):
         with open(out_path, "wb") as f:
             pickle.dump(out, f)
     dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _prefill_layouts():
+    """Record, while the block is open, whether each ``summed`` call of
+    the model code met a Partial placement (``summed_partial``) and
+    whether each q reaching ``_chunked_attention`` was split on its heads
+    (``q_by_head``), in call order."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.models import attention, encdec, transformer
+
+    seen = {"summed_partial": [], "q_by_head": []}
+    summed, split = transformer.summed, attention.split_q_heads
+
+    def summed_rec(t):
+        seen["summed_partial"].append(isinstance(t, DTensor) and any(
+            isinstance(p, Partial) for p in t.placements))
+        return summed(t)
+
+    def split_rec(t, dim, groups, **kw):
+        out = split(t, dim, groups, **kw)
+        seen["q_by_head"].append(out[1])
+        return out
+
+    mods = ((transformer, "summed", summed_rec), (encdec, "summed", summed_rec),
+            (attention, "split_q_heads", split_rec))
+    old = [getattr(m, n) for m, n, _ in mods]
+    for m, n, f in mods:
+        setattr(m, n, f)
+    try:
+        yield seen
+    finally:
+        for (m, n, _), f in zip(mods, old):
+            setattr(m, n, f)
 
 
 def _leaves(tree):
