@@ -164,7 +164,13 @@ just before and read just after:
   and ``argument_bytes`` equal across the two devices, and the dense
   products' (``aten.mm``) FLOPs per device equal to the CPU count,
   9.964981e11 (each rank's share of every product: the serving prefill
-  sums each row-split product before the residual add).
+  sums each row-split product before the residual add); (e)
+  ``launch/dryrun.py`` for falcon-mamba-7b x ``decode_32k`` cut to 2
+  layers at its published widths on the single-pod mesh, fake ``cuda``
+  and fake ``cpu`` tensors, two subprocesses started with (c) and (d):
+  FLOPs, collectives and ``argument_bytes`` equal across the two
+  devices, and the FLOPs per device equal to the CPU count, 4.768399e8
+  (each rank runs its own d_inner channels of every Mamba mixer).
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2866,6 +2872,13 @@ DRYRUN_MESHES = ("single", "multi")
 PREFILL_DRYRUN_CELL = ("llama3.2-1b", "prefill_32k")
 PREFILL_DRYRUN_LAYERS = 2
 PREFILL_DRYRUN_MM_FLOPS = "9.964981e+11"
+# phase 15 (e): a Mamba-1 decode at published widths, 2 layers, on the
+# single-pod mesh; its FLOPs per device, to the 7 digits of the CPU
+# count: 8 tokens x (2 layers x 13,156,352 + the LM head's 33,292,288),
+# each a sixteenth of the one-rank count
+SSM_DRYRUN_CELL = ("falcon-mamba-7b", "decode_32k")
+SSM_DRYRUN_LAYERS = 2
+SSM_DRYRUN_FLOPS = "4.768399e+08"
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
 _CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
@@ -3340,10 +3353,12 @@ def main() -> int:
     # (c)'s train cells run on the host beside (a) and (b), after phase
     # 14's host-clock timings
     train_dryrun = start_dryruns(root, TRAIN_DRYRUN_CELL, "train")
-    # (d)'s prefill cells beside them
+    # (d)'s prefill cells and (e)'s Mamba decode cells beside them
     prefill_dryrun = start_dryruns(root, PREFILL_DRYRUN_CELL, "prefill",
                                    meshes=("single",),
                                    n_layers=PREFILL_DRYRUN_LAYERS)
+    ssm_dryrun = start_dryruns(root, SSM_DRYRUN_CELL, "ssm",
+                               meshes=("single",), n_layers=SSM_DRYRUN_LAYERS)
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
@@ -3364,6 +3379,13 @@ def main() -> int:
           f"{PREFILL_DRYRUN_LAYERS} layers x {PREFILL_DRYRUN_CELL[1]} single:"
           f" aten.mm {mm:.6e} FLOPs per device == {PREFILL_DRYRUN_MM_FLOPS} "
           f"(all operators {cost['prefill_dryrun']['single']['flops']:.6e})")
+    cost["ssm_dryrun"] = collect_dryruns(tag, "(e)", ssm_dryrun,
+                                         timeout=TRAIN_DRYRUN_TIMEOUT_S)
+    flops = cost["ssm_dryrun"]["single"]["flops"]
+    assert f"{flops:.6e}" == SSM_DRYRUN_FLOPS, (flops, SSM_DRYRUN_FLOPS)
+    print(f"[{tag}] phase 15 (e) {SSM_DRYRUN_CELL[0]} cut to "
+          f"{SSM_DRYRUN_LAYERS} layers x {SSM_DRYRUN_CELL[1]} single: "
+          f"{flops:.6e} FLOPs per device == {SSM_DRYRUN_FLOPS}")
     print(f"[{tag}] cost model: {json.dumps(cost)}")
     print(f"[{tag}] phase 15 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")

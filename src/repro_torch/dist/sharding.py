@@ -403,15 +403,26 @@ def grad_whole_dim(t, dim: int, parts: int = 1):
     return _relaid(t, _same, lambda g: whole_dim(g, dim, parts))
 
 
-def grad_batch_only(t):
-    """``t`` itself, whose gradient is laid out by ``batch_only`` on its
-    way back (a Partial sum reduced, every other placement but the
-    batch's made Replicate).  Placed after an in-place write into part of
-    ``t``: the write's backward copies a gradient into a slice of ``t``'s
-    gradient, which DTensor cannot do into a Partial one ("redistribute
-    from S(1) to P(sum)").  A plain tensor, or one that records no
-    gradient, passes unchanged."""
-    return _relaid(t, _same, batch_only)
+def grad_replicated(t, j: int):
+    """``t`` itself, whose gradient is made Replicate on mesh dimension
+    ``j`` on its way back (a split there gathered, a Partial sum
+    reduced).  Placed on the output of a row-split product whose input
+    holds each rank's own channels: DTensor may hand that output a
+    gradient split by batch over the model axis too, and the product's
+    backward then gathers its weight and runs every step before it with
+    all the channels on the rank's share of the batch (on ranks past the
+    batch's end, none).  Replicate there, the gradient meets each rank's
+    own channels, as Megatron's and GSPMD's backward keep it.  A plain
+    tensor, or one that records no gradient, passes unchanged."""
+
+    def bwd(g):
+        pl = list(g.placements)
+        if isinstance(pl[j], Replicate):
+            return g
+        pl[j] = Replicate()
+        return g.redistribute(g.device_mesh, pl)
+
+    return _relaid(t, _same, bwd)
 
 
 def _split_names(ts, dims, sizes, mesh, uneven=()) -> list:
@@ -561,18 +572,44 @@ def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), uneven=(),
     return tuple(dist(o, d) for o, d in zip(out, out_dims))
 
 
-def _model_dim(t, groups: int):
-    """The index of the ``model`` mesh axis of DTensor ``t`` where that
-    axis has more than one rank and does not divide ``groups``, else
-    None."""
+def _model_axis(t):
+    """(index, size) of the ``model`` mesh axis of DTensor ``t``, or None
+    (a plain tensor, a mesh without one)."""
     if not isinstance(t, DTensor):
         return None
     names = list(mesh_shape(t.device_mesh))
     if "model" not in names:
         return None
     j = names.index("model")
-    size = t.device_mesh.size(j)
-    return j if size > 1 and groups % size else None
+    return j, t.device_mesh.size(j)
+
+
+def _model_dim(t, groups: int):
+    """The index of the ``model`` mesh axis of DTensor ``t`` where that
+    axis has more than one rank and does not divide ``groups``, else
+    None."""
+    m = _model_axis(t)
+    return m[0] if m is not None and m[1] > 1 and groups % m[1] else None
+
+
+def model_divides(t, n: int):
+    """The index of the ``model`` mesh axis of DTensor ``t`` where that
+    axis has more than one rank and divides ``n`` (each rank can take
+    whole n / model of them), else None."""
+    m = _model_axis(t)
+    return m[0] if m is not None and m[1] > 1 and n % m[1] == 0 else None
+
+
+def split_locally(t, dim: int, j: int):
+    """DTensor ``t`` with tensor dimension ``dim`` split over mesh
+    dimension ``j``, its other placements kept.  A ``t`` replicated there
+    is sliced locally, with no collective (the rank's own columns of a
+    replicated weight)."""
+    pl = list(t.placements)
+    pl[j] = Shard(dim % t.ndim)
+    if tuple(pl) == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pl)
 
 
 def splits_q_heads(t, groups: int) -> bool:
@@ -601,9 +638,7 @@ def split_q_heads(t, dim: int, groups: int, *, replicated: bool = True):
         return t, True
     if not (replicated and isinstance(p, Replicate)):
         return t, False
-    pl = list(t.placements)
-    pl[j] = Shard(dim)
-    return t.redistribute(t.device_mesh, pl), True
+    return split_locally(t, dim, j), True
 
 
 def tree_map(fn, tree, *rest):

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import batch_only, grad_batch_only, on_local_shards
+from ..dist.sharding import (batch_only, grad_replicated, model_divides,
+                              on_local_shards, split_locally, whole_dim)
 from .common import dtype_of, einsum, matmul, softplus
 
 SCAN_CHUNK = 512  # sequence chunk for the chunked recurrence (memory knob)
@@ -102,9 +103,7 @@ def _chunked_assoc_scan(a, b, h0=None):
         ac, bc = a[:, c * chunk:(c + 1) * chunk], b[:, c * chunk:(c + 1) * chunk]
         bc = bc.clone()
         bc[:, 0] = bc[:, 0] + ac[:, 0] * h
-        # the write's backward needs a gradient that is no Partial sum
-        # (``grad_batch_only``)
-        hc = _assoc_scan(ac, grad_batch_only(bc))
+        hc = _assoc_scan(ac, bc)
         h = hc[:, -1]
         out.append(hc)
     return torch.cat(out, dim=1), h
@@ -128,18 +127,114 @@ def _causal_conv(x, w, b, state=None):
     return y + b, new_state
 
 
-def _decode_conv(state, new, w, b):
+def _decode_conv(new, w, b, state):
     """One step of the conv: (xp * w).sum over the K taps, as the
     reference's decode computes it.  Returns (y, new_state)."""
     xp = torch.cat([state, new[:, None]], dim=1)
     return (xp * w[None]).sum(1) + b, xp[:, 1:]
 
 
-def _gated_rms_norm(y, z, w, dtype):
-    """Mamba-2's gated RMSNorm: y * silu(z), normalized in float32."""
+# -- on a mesh: each rank's own channels ---------------------------------------
+#
+# Where the model axis divides the mixer's channels (Mamba-1's d_inner,
+# Mamba-2's heads), each rank runs its own share of them, as the
+# reference's compiled program does: GSPMD propagates the split of
+# ``conv_w``, ``x_proj``, ``A_log`` and ``out_proj`` back into the
+# replicated ``in_proj``.  The conv and the scan are elementwise in the
+# channels, so they run on each rank's local shards
+# (``dist.sharding.on_local_shards``), split by batch and by channel as
+# their operands arrive.  Plain tensors call them directly.
+
+_BSC = {"batch": 0, "chan": 2}  # (B, S, C) and a conv state (B, K-1, C)
+
+
+def _channels(cfg, x):
+    """The index of the ``model`` mesh axis where DTensor ``x`` lies on a
+    mesh whose model axis (of more than one rank) divides the mixer's
+    channels: Mamba-1's d_inner, Mamba-2's heads.  None keeps the layout
+    by batch alone (a plain tensor, a model axis of 1 or one that does
+    not divide them)."""
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    return model_divides(x, din if s.version == 1 else din // s.head_p)
+
+
+def _in_proj(cfg, p, x, j):
+    """``x @ in_proj`` in its column blocks: (xi, z) for Mamba-1, (z, xi,
+    Bc, Cc, dt) for Mamba-2.  With ``j`` (``_channels``) each rank
+    multiplies by its own d_inner columns of the xi and z blocks and its
+    own heads' columns of Mamba-2's dt, so that they come out split on
+    their last dimension over the model axis: ``in_proj`` is replicated
+    there, so each is a local slice with no collective
+    (``split_locally``).  Mamba-2's B and C stay whole on every rank:
+    every head reads them."""
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    if j is None:
+        out = matmul(x, p.in_proj)
+        if s.version == 1:
+            return out.split([din, din], dim=-1)
+        return _split_m2(cfg, out)
+    w = p.in_proj
+    # the first two blocks as (d, 2, din), split on din: no rank's columns
+    # mix the two
+    pair = split_locally(w[:, :2 * din].reshape(w.shape[0], 2, din), 2, j)
+    first, second = matmul(x, pair[:, 0]), matmul(x, pair[:, 1])
+    if s.version == 1:
+        return first, second
+    N = s.d_state
+    Bc, Cc = matmul(x, w[:, 2 * din:2 * din + 2 * N]).split([N, N], dim=-1)
+    dt = matmul(x, split_locally(w[:, 2 * din + 2 * N:], 1, j))
+    return first, second, Bc, Cc, dt
+
+
+def _out_proj(p, y, j):
+    """``y @ out_proj``, a Partial sum over the model axis where ``y``
+    holds each rank's own channels (``j``, ``_channels``); its gradient
+    comes back Replicate on the model axis (``grad_replicated``), so
+    that the mixer's backward runs on each rank's own channels too."""
+    out = matmul(y, p.out_proj)
+    return out if j is None else grad_replicated(out, j)
+
+
+def _conv(x, w, b, state=None):
+    """``_causal_conv`` on local shards.  x: (B, S, C)."""
+    return on_local_shards(_causal_conv, (x, w, b, state),
+                           (_BSC, {"chan": 1}, {"chan": 0}, _BSC),
+                           {"batch": x.shape[0], "chan": x.shape[2]},
+                           (_BSC, _BSC))
+
+
+def _step_conv(new, w, b, state):
+    """``_decode_conv`` on local shards.  new: (B, C)."""
+    return on_local_shards(
+        _decode_conv, (new, w, b, state),
+        ({"batch": 0, "chan": 1}, {"chan": 1}, {"chan": 0}, _BSC),
+        {"batch": new.shape[0], "chan": new.shape[1]},
+        ({"batch": 0, "chan": 1}, _BSC))
+
+
+def _local_scan(a, b, h0, dim):
+    """``_chunked_assoc_scan`` on local shards, split by batch and by
+    ``b``'s channel dimension ``dim`` (Mamba-1's d_inner, Mamba-2's
+    heads)."""
+    d, d0 = {"batch": 0, "chan": dim}, {"batch": 0, "chan": dim - 1}
+    return on_local_shards(_chunked_assoc_scan, (a, b, h0), (d, d, d0),
+                           {"batch": b.shape[0], "chan": b.shape[dim]},
+                           (d, d0))
+
+
+def _gated_rms_norm(y, z, w, dtype, j=None):
+    """Mamba-2's gated RMSNorm: y * silu(z), normalized in float32.  With
+    ``j`` (``_channels``) each rank holds its own heads' channels: the
+    mean is a sum across the model axis, and its gradient, a Partial sum
+    there, is reduced before it spreads back over the channels
+    (``grad_replicated``; DTensor would split it by batch instead)."""
     y = y * F.silu(z)
     y32 = y.to(torch.float32)
     var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    if j is not None:
+        var = grad_replicated(var, j)
     return (y32 * torch.rsqrt(var + RMS_EPS)).to(dtype) * w
 
 
@@ -199,12 +294,15 @@ def _mamba1_proj(cfg, p, xi):
 def mamba1_block(cfg, p: Mamba1, x, *, state=None):
     """x: (B, S, d).  state: None (train/prefill) or dict {conv, ssm} to
     continue from.  Returns (y, {"conv", "ssm"}: the final states).  A
-    DTensor ``x`` enters sharded on its batch alone (``batch_only``)."""
-    din = cfg.ssm.expand * cfg.d_model
+    DTensor ``x`` enters sharded on its batch alone (``batch_only``);
+    where the model axis divides d_inner each rank then runs its own
+    d_inner channels, and ``out_proj``'s output is a Partial sum over the
+    model axis."""
     x = batch_only(x)
-    xi, z = matmul(x, p.in_proj).split([din, din], dim=-1)
+    j = _channels(cfg, x)
+    xi, z = _in_proj(cfg, p, x, j)
     conv_state = None if state is None else state["conv"]
-    xi, new_conv = _causal_conv(xi, p.conv_w, p.conv_b, conv_state)
+    xi, new_conv = _conv(xi, p.conv_w, p.conv_b, conv_state)
     xi = F.silu(xi)
     dt, Bc, Cc = _mamba1_proj(cfg, p, xi)
     A = -torch.exp(p.A_log)  # (din, N)
@@ -212,23 +310,21 @@ def mamba1_block(cfg, p: Mamba1, x, *, state=None):
     xf = xi.to(torch.float32)
     Bf = Bc.to(torch.float32)
     Cf = Cc.to(torch.float32)
-    # on DTensors the scan's operands are laid out by batch alone: the
-    # scan's strided slices and interleaves would gather them anyway, and
-    # DTensor's backward through them cannot reach a sharded ``A_log``
-    a = batch_only(torch.exp(dt[..., None] * A[None, None]))  # (B, S, din, N)
-    bterm = batch_only((dt * xf)[..., None] * Bf[:, :, None, :])
+    a = torch.exp(dt[..., None] * A[None, None])  # (B, S, din, N)
+    bterm = (dt * xf)[..., None] * Bf[:, :, None, :]
     h0 = None if state is None else state["ssm"]  # (B, din, N)
-    h, last = _chunked_assoc_scan(a, bterm, h0)
+    h, last = _local_scan(a, bterm, h0, 2)
     y = torch.einsum("bsdn,bsn->bsd", h, Cf) + p.D * xf
     y = y.to(x.dtype) * F.silu(z)
-    return matmul(y, p.out_proj), {"conv": new_conv, "ssm": last}
+    return _out_proj(p, y, j), {"conv": new_conv, "ssm": last}
 
 
 def mamba1_decode(cfg, p: Mamba1, x, state):
-    """Single-token decode, O(1): x (B, 1, d).  Returns (out, new_state)."""
-    din = cfg.ssm.expand * cfg.d_model
-    xi, z = matmul(x[:, 0], p.in_proj).split([din, din], dim=-1)
-    y, new_conv = _decode_conv(state["conv"], xi, p.conv_w, p.conv_b)
+    """Single-token decode, O(1): x (B, 1, d).  Returns (out, new_state).
+    DTensors are laid out as in ``mamba1_block``."""
+    x = batch_only(x)
+    xi, z = _in_proj(cfg, p, x[:, 0], _channels(cfg, x))
+    y, new_conv = _step_conv(xi, p.conv_w, p.conv_b, state["conv"])
     xi = F.silu(y)
     dt, Bc, Cc = _mamba1_proj(cfg, p, xi)
     A = -torch.exp(p.A_log)
@@ -288,12 +384,35 @@ class Mamba2(nn.Module):
 
 
 def _split_m2(cfg, fused):
+    """[z, x, B, C, dt] of the fused ``in_proj`` product."""
     s = cfg.ssm
     din = s.expand * cfg.d_model
-    nh = din // s.head_p
-    z, xi, Bc, Cc, dt = fused.split([din, din, s.d_state, s.d_state, nh],
-                                    dim=-1)
-    return z, xi, Bc, Cc, dt, din, nh
+    return fused.split([din, din, s.d_state, s.d_state, din // s.head_p],
+                       dim=-1)
+
+
+def _conv_by_heads(conv, cfg, p, xi, Bc, Cc, state):
+    """Mamba-2's conv and its silu, x apart from B and C: where each rank
+    holds its own heads of ``xi`` and all of B and C.  ``conv_w``,
+    ``conv_b`` and the conv state are split contiguously over din + 2N,
+    which does not line up with the heads: they are gathered once a call
+    (``whole_dim``), and each rank convolves its own x channels and all
+    of B's and C's (``conv``: ``_conv`` or ``_step_conv``).  The conv is
+    depthwise and silu elementwise, so a plain tensor's channels take the
+    same operations as over [x, B, C] at once.  Returns (xi, Bc, Cc, the
+    new conv state), the state whole on the model axis (a cache write
+    lays it out as the cache, ``local_write``)."""
+    N, din = cfg.ssm.d_state, xi.shape[-1]
+    w, b = whole_dim(p.conv_w, 1), whole_dim(p.conv_b, 0)
+    st_x = st_bc = None
+    if state is not None:
+        state = whole_dim(state, -1)
+        st_x, st_bc = state[..., :din], state[..., din:]
+    xi, new_x = conv(xi, w[:, :din], b[:din], st_x)
+    bc, new_bc = conv(torch.cat([Bc, Cc], dim=-1), w[:, din:], b[din:],
+                      st_bc)
+    Bc, Cc = F.silu(bc).split([N, N], dim=-1)
+    return F.silu(xi), Bc, Cc, torch.cat([new_x, new_bc], dim=-1)
 
 
 def mamba2_block(cfg, p: Mamba2, x, *, state=None):
@@ -301,16 +420,19 @@ def mamba2_block(cfg, p: Mamba2, x, *, state=None):
     form where the reference takes it (``S % SSD_CHUNK == 0`` and ``S >
     SSD_CHUNK``), else the associative scan over the (B, S, nh, hp, N)
     state.  Returns (y, {"conv", "ssm"}).  A DTensor ``x`` enters sharded
-    on its batch alone (``batch_only``)."""
+    on its batch alone (``batch_only``); where the model axis divides the
+    heads each rank then runs its own heads (B and C whole), and
+    ``out_proj``'s output is a Partial sum over the model axis."""
     s = cfg.ssm
     B, S, _ = x.shape
+    din = s.expand * cfg.d_model
+    nh = din // s.head_p
     x = batch_only(x)
-    z, xi, Bc, Cc, dtr, din, nh = _split_m2(cfg, matmul(x, p.in_proj))
-    xbc = torch.cat([xi, Bc, Cc], dim=-1)
+    j = _channels(cfg, x)
+    z, xi, Bc, Cc, dtr = _in_proj(cfg, p, x, j)
     conv_state = None if state is None else state["conv"]
-    xbc, new_conv = _causal_conv(xbc, p.conv_w, p.conv_b, conv_state)
-    xbc = F.silu(xbc)
-    xi, Bc, Cc = xbc.split([din, s.d_state, s.d_state], dim=-1)
+    xi, Bc, Cc, new_conv = _conv_by_heads(_conv, cfg, p, xi, Bc, Cc,
+                                          conv_state)
 
     dt = softplus(dtr.to(torch.float32) + p.dt_bias)  # (B, S, nh)
     A = -torch.exp(p.A_log)  # (nh,)
@@ -323,12 +445,12 @@ def mamba2_block(cfg, p: Mamba2, x, *, state=None):
         a = torch.exp(dt * A)  # (B, S, nh)
         bterm = (dt[..., None] * xf)[..., None] \
             * Bc.to(torch.float32)[:, :, None, None, :]
-        h, last = _chunked_assoc_scan(a[..., None, None], bterm, h0)
+        h, last = _local_scan(a[..., None, None], bterm, h0, 2)
         y = torch.einsum("bshpn,bsn->bshp", h, Cc.to(torch.float32))
     y = (y.to(x.dtype) + p.D.to(x.dtype)[None, None, :, None]
          * xh.to(x.dtype))
-    y = _gated_rms_norm(y.reshape(B, S, din), z, p.norm_w, x.dtype)
-    return matmul(y, p.out_proj), {"conv": new_conv, "ssm": last}
+    y = _gated_rms_norm(y.reshape(B, S, din), z, p.norm_w, x.dtype, j)
+    return _out_proj(p, y, j), {"conv": new_conv, "ssm": last}
 
 
 def _einsum_f32(eq, *ops):
@@ -402,13 +524,17 @@ def _ssd(dt, A, xh, Bc, Cc, h0, *, Q):
 
 
 def mamba2_decode(cfg, p: Mamba2, x, state):
-    """Single-token decode: x (B, 1, d).  Returns (out, new_state)."""
+    """Single-token decode: x (B, 1, d).  Returns (out, new_state).
+    DTensors are laid out as in ``mamba2_block``."""
     s = cfg.ssm
     B = x.shape[0]
-    z, xi, Bc, Cc, dtr, din, nh = _split_m2(cfg, matmul(x[:, 0], p.in_proj))
-    xbc = torch.cat([xi, Bc, Cc], dim=-1)
-    y, new_conv = _decode_conv(state["conv"], xbc, p.conv_w, p.conv_b)
-    xi, Bc, Cc = F.silu(y).split([din, s.d_state, s.d_state], dim=-1)
+    din = s.expand * cfg.d_model
+    nh = din // s.head_p
+    x = batch_only(x)
+    j = _channels(cfg, x)
+    z, xi, Bc, Cc, dtr = _in_proj(cfg, p, x[:, 0], j)
+    xi, Bc, Cc, new_conv = _conv_by_heads(_step_conv, cfg, p, xi, Bc, Cc,
+                                          state["conv"])
     dt = softplus(dtr.to(torch.float32) + p.dt_bias)  # (B, nh)
     A = -torch.exp(p.A_log)
     xh = xi.reshape(B, nh, s.head_p).to(torch.float32)

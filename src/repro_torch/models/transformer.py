@@ -132,7 +132,7 @@ class SSMBlock(nn.Module):
     def decode(self, x, state):
         out, st = ssm_mod.decode_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),
                                               state)
-        return x + out, st
+        return x + summed(out), st
 
 
 def write(buf, new):

@@ -41,12 +41,16 @@ attention products at edge 4 at most a sixteenth of its count at one
 rank (a (1, 1) run of the cut, started with the others).
 
 The serving prefill splits its dense products and its attention over the
-model axis: llama3.2-1b and qwen2-0.5b at their published widths, cut to
-2 layers over 1,024 tokens at batch 8 (``PREFILL_CUT``), each at edge 4
-and at one rank.  Per device at (4, 4) their dense products (``mm``) are
-at most 1.02x a sixteenth of the one-rank count (each row-split
-product's output is summed before the residual add, so every later
-product takes the rank's own columns), and qwen2-0.5b's attention
+model axis: llama3.2-1b, qwen2-0.5b, falcon-mamba-7b and zamba2-7b at
+their published widths, cut to 2 layers over 1,024 tokens at batch 8
+(``PREFILL_CUT``), each at edge 4 and at one rank.  Per device at (4, 4)
+their dense products (``mm``) are at most 1.02x a sixteenth of the
+one-rank count (each row-split product's output is summed before the
+residual add, so every later product takes the rank's own columns; the
+Mamba mixers take their own d_inner columns of the replicated
+``in_proj``; zamba2-7b's Mamba-2 mixers multiply by all 2N columns of B
+and C on every rank, 1.026x for ``in_proj`` alone, 1.0076x in all); and
+qwen2-0.5b's attention
 (``bmm``) runs rank 0's 4 of its 14 q heads on a quarter of the batch (a
 replicated q split on its heads)."""
 import json
@@ -77,7 +81,7 @@ TRAIN_CUTS = {
 HEADS_CUT = "llama3.2-1b"
 # the prefill's cuts: published widths, 2 layers, a short shape
 PREFILL_CUT = dict(published=True, n_layers=2, seq_len=1024, global_batch=8)
-PREFILL_ARCHS = ("llama3.2-1b", "qwen2-0.5b")
+PREFILL_ARCHS = ("llama3.2-1b", "qwen2-0.5b", "falcon-mamba-7b", "zamba2-7b")
 # qwen2-0.5b: 14 q heads over 2 kv heads, which the model axis (4) does
 # not divide; rank 0 holds ceil(14 / 4) of them
 QWEN_HEADS, QWEN_RANK0_HEADS = 14, 4
@@ -284,7 +288,9 @@ def test_prefill_dense_products_run_on_each_ranks_share(runs, arch):
     the one-rank count (the LM head over the last token included).  With
     the residual stream left a Partial sum after a row-split product,
     DTensor gathered the next layer's weights and ran those products
-    whole (1.155x for llama3.2-1b, 1.103x for qwen2-0.5b)."""
+    whole (1.155x for llama3.2-1b, 1.103x for qwen2-0.5b); with the Mamba
+    mixers' operands laid out by batch alone, every rank multiplied by
+    the whole ``in_proj``."""
     ops4, ops1 = prefill_ops(runs, arch)
     mm4, mm1 = ops4["aten.mm"]["flops"], ops1["aten.mm"]["flops"]
     assert mm4 <= 1.02 * mm1 / 16, 16 * mm4 / mm1

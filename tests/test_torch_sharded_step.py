@@ -17,7 +17,8 @@ q/k/v biases) and a llama cut with 6 q heads (``cut``:
 cut tensor parallel at (1, 4) (the pinned q split on its own heads, 2,
 2, 2 and 0 a rank), and
 falcon-mamba-7b SMOKE at (2, 2) over 1,024 tokens (``seq``), where the
-scan runs in chunks.  Tolerances: the
+scan runs in chunks, and zamba2-7b SMOKE at (2, 2), each rank on its own
+Mamba-2 heads.  Tolerances: the
 loss within 2e-5 x |ref|, every master, m and v leaf within 1e-4 x max
 |ref leaf| (the tolerance of ``test_torch_train_step.py``'s three
 one-device steps: each rank sums its own float32 partial products, in an
@@ -37,17 +38,22 @@ Serving cases run ``build_prefill_step`` on a zero cache and then four
 ``build_decode_step`` steps over that cache, for llama3.2-1b and
 whisper-medium SMOKE at (2, 2), in float32 (logits and cache leaves
 within 2e-5 x max) and bfloat16 (5e-2 x max), for falcon-mamba-7b and
-zamba2-7b SMOKE at (2, 2) in float32, and in float32 at (1, 4),
-where the 2 kv heads do not divide the model axis and each rank runs its
-own q heads: llama3.2-1b SMOKE (4 q heads, 1 a rank) and the 6-head cut
-(2, 2, 2 and 0 a rank).  The port's worker records the prefill's
+zamba2-7b SMOKE at (2, 2) in float32, and in float32 at (1, 4):
+zamba2-7b SMOKE (1 SSM head a rank; its conv's leaves split 36 a rank
+against 32 x-channels), and where the 2 kv heads do not divide the model
+axis and each rank runs its own q heads, llama3.2-1b SMOKE (4 q heads, 1
+a rank) and the 6-head cut (2, 2, 2 and 0 a rank).  The port's worker records the prefill's
 layouts: in every serving case the output of each row-split product
 (the attention's and the MLP's ``wo``, a Mamba mixer's ``out_proj``)
 reaches ``summed`` as a Partial sum, in every layer (the sum that lets
 the next layer's products take the rank's own columns), and at (1,
 4) every q reaching the chunked attention is split on its heads (the
 6-head cut's q arrives replicated, 6 heads in whole columns of ``wq``
-not splitting 4 ways; SMOKE's layer 1 took a Partial q before)."""
+not splitting 4 ways; SMOKE's layer 1 took a Partial q before).  In the
+Mamba cases (``SSM_CASES``) the worker records whether each mixer's
+``in_proj`` product gave its x split on d_inner over the model axis: so
+it must be in every layer, in training and in serving, each rank running
+its own channels (Mamba-1) or heads (Mamba-2)."""
 import os
 import pathlib
 import pickle
@@ -92,6 +98,10 @@ TRAIN = [
     # above the scan chunk (512): the chunked scan's write into its first
     # step, whose backward must not meet a Partial gradient
     dict(name="ssm_2x2_1k", arch="falcon-mamba-7b", mesh=(2, 2), seq=1024),
+    # the Mamba-2 mixers' backward on each rank's own heads (2 a rank): B
+    # and C whole, the gated norm's mean summed over the model axis, the
+    # conv's leaves (72 a rank against 64 x-channels) gathered
+    dict(name="zamba2_2x2", arch="zamba2-7b", mesh=(2, 2)),
 ]
 SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
          for short, arch in (("llama", "llama3.2-1b"),
@@ -108,7 +118,14 @@ SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
          mesh=(2, 2)),
     dict(name="zamba2_float32", arch="zamba2-7b", dtype="float32",
          mesh=(2, 2)),
+    # 1 SSM head a rank, and din + 2N = 144 split 36 a rank against 32
+    # x-channels: the conv's leaves and state do not line up with the heads
+    dict(name="zamba2_float32_1x4", arch="zamba2-7b", dtype="float32",
+         mesh=(1, 4)),
 ]
+# the cases whose Mamba mixers run each rank's own channels
+SSM_CASES = ("ssm_2x2", "ssm_2x2_1k", "zamba2_2x2", "falcon_float32",
+             "zamba2_float32", "zamba2_float32_1x4")
 
 
 def free_port() -> int:
@@ -319,9 +336,28 @@ def test_serving_prefill_sums_row_split_products(results, name):
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in SERVE
-                                  if c["mesh"] == (1, 4)])
+                                  if c["mesh"] == (1, 4)
+                                  and c["arch"] == "llama3.2-1b"])
 def test_serving_prefill_splits_q_on_its_heads(results, name):
     """At (1, 4) the 2 kv heads do not divide the model axis: in every
     layer's prefill attention each rank runs its own q heads."""
     _, port = pair(results, name)
     assert port["q_by_head"] == [True, True], port["q_by_head"]
+
+
+@pytest.mark.parametrize("name", SSM_CASES)
+def test_mamba_mixers_run_each_ranks_own_channels(results, name):
+    """The model axis divides d_inner (Mamba-1) and the SSM heads
+    (Mamba-2): in every layer, in training (each microbatch, and its
+    recompute) and in serving (the prefill and each decode step), the
+    ``in_proj`` product's x output is split on d_inner over the model
+    axis."""
+    _, port = pair(results, name)
+    flags = port["ssm_by_channel"]
+    case = next(c for c in TRAIN + SERVE if c["name"] == name)
+    layers = RC.get_config(case["arch"], smoke=True).n_layers
+    if case in SERVE:  # the prefill and 4 decode steps
+        assert len(flags) == 5 * layers, flags
+    else:  # 2 steps of 2 microbatches, and the recompute
+        assert len(flags) % layers == 0 and len(flags) >= 4 * layers, flags
+    assert all(flags), flags

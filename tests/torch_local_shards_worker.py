@@ -16,12 +16,14 @@ where the model axis cannot split whole kv-head groups (k and v whole:
 heads; 6 q / 2 kv heads at (1, 4), 2, 2, 2 and 0 heads a rank, also
 with gradients); the SSD (``ssm._ssd_chunked``) with
 ``dt`` and ``A`` split by heads, the rest by batch, with and without an
-initial state; one ``Attention.forward`` (llama3.2-1b SMOKE) and one
-``mamba2_block`` (zamba2-7b SMOKE) with their weights laid out by the
+initial state; one ``Attention.forward`` (llama3.2-1b SMOKE), one
+``mamba2_block`` (zamba2-7b SMOKE) and one ``mamba1_block``
+(falcon-mamba-7b SMOKE, 1,024 tokens) with their weights laid out by the
 training rules, against the same modules on plain tensors; and the
 gradients of the chunked attention split by rows (Partial q/k/v, every
-rank's share) and by q heads at (1, 4), and of the SSD at (2, 2), against
-the plain call's.
+rank's share) and by q heads at (1, 4), of the SSD at (2, 2), and of the
+input and weights of a ``mamba1_block`` and a ``mamba2_block`` (64
+tokens), against the plain call's.
 """
 import json
 import sys
@@ -102,7 +104,9 @@ def rank_main(rank, port, out_path):
             got = ssm._ssd_chunked(*args, 256)
         found[name] = max(err(g, w) for g, w in zip(got, want))
     # whole modules, weights on the training rules' layout
-    for arch, S in (("llama3.2-1b", 64), ("zamba2-7b", 512)):
+    modules = {}
+    for arch, S in (("llama3.2-1b", 64), ("zamba2-7b", 512),
+                    ("falcon-mamba-7b", 1024)):
         cfg = get_config(arch, smoke=True)
         plain = draw_weights(empty_model(cfg, "cpu"),
                              torch.Generator().manual_seed(1))
@@ -121,11 +125,12 @@ def rank_main(rank, port, out_path):
                     kv_chunk=16)[0]
             name = "attention_forward"
         else:
-            want = ssm.mamba2_block(cfg, plain.blocks[0].ssm, x)[0]
+            name = ssm.block_fn(cfg).__name__
+            want = ssm.block_fn(cfg)(cfg, plain.blocks[0].ssm, x)[0]
             with implicit_replication():
-                got = ssm.mamba2_block(cfg, sharded.blocks[0].ssm,
-                                       put(x, Shard(0), Replicate()))[0]
-            name = "mamba2_block"
+                got = ssm.block_fn(cfg)(cfg, sharded.blocks[0].ssm,
+                                        put(x, Shard(0), Replicate()))[0]
+            modules[name] = (cfg, plain, sharded, x)
         found[name] = err(got, want) / float(want.abs().max())
 
     # (drawn after the cases above, whose draws stay as they were)
@@ -204,6 +209,37 @@ def rank_main(rank, port, out_path):
          (Shard(0), Replicate()), (Shard(0), Replicate()),
          (Shard(0), Replicate()), (Shard(0), Shard(1))))
 
+    def block_grad(cfg, plain, sharded, x):
+        """The largest error, over max |want|, of the gradients of a
+        whole Mamba block's input and of every weight."""
+        fn = ssm.block_fn(cfg)
+        w = rnd(*x.shape)
+        with torch.enable_grad():
+            xs = x.clone().requires_grad_()
+            ps = dict(plain.blocks[0].ssm.named_parameters())
+            want = torch.autograd.grad(
+                (fn(cfg, plain.blocks[0].ssm, xs)[0] * w).sum(),
+                [xs] + list(ps.values()))
+            xd = put(x, Shard(0), Replicate()).requires_grad_()
+            pd = {k: t.requires_grad_() for k, t in
+                  sharded.blocks[0].ssm.named_parameters()}
+            with implicit_replication():
+                out = fn(cfg, sharded.blocks[0].ssm, xd)[0]
+                got = torch.autograd.grad(
+                    (out * put(w, Shard(0), Replicate())).sum(),
+                    [xd] + [pd[k] for k in ps])
+        return max(err(g, wt) / float(wt.abs().max())
+                   for g, wt in zip(got, want))
+
+    # whole Mamba blocks' backward, each rank on its own d_inner channels
+    # (Mamba-1) or heads (Mamba-2: over 64 tokens, the float32 scan that
+    # training takes at these lengths, not the SSD's bfloat16 chunks; its
+    # conv leaves split 72 a rank against 64 x-channels, and its gated
+    # norm's mean sums over the model axis)
+    found["mamba1_block_grad"] = block_grad(*modules["mamba1_block"])
+    cfg, plain, sharded, _ = modules["mamba2_block"]
+    found["mamba2_block_grad"] = block_grad(cfg, plain, sharded,
+                                            rnd(4, 64, cfg.d_model))
 
     if rank == 0:
         with open(out_path, "w") as f:

@@ -20,7 +20,10 @@ over that cache; the port also records, in call order, whether each
 ``summed`` of the prefill met a Partial sum and whether each q reaching
 its chunked attention was split on its heads), ``restore`` (one step on a (4, 1) mesh, a checkpoint,
 restored onto a 2-rank (2, 1) mesh, one more step) and ``resize`` (a
-``Trainer`` on (4, 1) resized onto (2, 2), one more step).
+``Trainer`` on (4, 1) resized onto (2, 2), one more step).  In every case
+the port records, per Mamba mixer call and in call order, whether the
+``in_proj`` product's x output was split on d_inner over the model axis
+(``ssm_by_channel``).
 """
 import contextlib
 import os
@@ -212,8 +215,10 @@ def port_rank(rank, port, cases, tmp, out_path):
         return steps.shard_state(st, built.in_shardings[0])
 
     out = {}
+    by_channel = _record_mixers()
     for case in cases:
         t0 = time.perf_counter()
+        by_channel.clear()
         try:
             cfg = cfg_of(case)
             res = {}
@@ -290,7 +295,8 @@ def port_rank(rank, port, cases, tmp, out_path):
                     dl.append(full(logits).float().numpy())
                 res["decode_logits"] = dl
                 res["decode_cache"] = host(cache)
-            out[case["name"]] = dict(res, seconds=time.perf_counter() - t0)
+            out[case["name"]] = dict(res, ssm_by_channel=list(by_channel),
+                                     seconds=time.perf_counter() - t0)
         except Exception:  # recorded; the test reports it
             out[case["name"]] = {"error": f"rank {rank}: "
                                           + traceback.format_exc()}
@@ -339,6 +345,32 @@ def _prefill_layouts():
     finally:
         for (m, n, _), f in zip(mods, old):
             setattr(m, n, f)
+
+
+def _record_mixers() -> list:
+    """From now on record, in call order, whether the x output of each
+    Mamba mixer's ``in_proj`` product (``ssm._in_proj``) is a DTensor
+    split on its last dimension (d_inner) over the model mesh axis; the
+    list returned receives the records."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.models import ssm
+
+    seen = []
+    in_proj = ssm._in_proj
+
+    def rec(cfg, p, x, j):
+        out = in_proj(cfg, p, x, j)
+        xi = out[0] if cfg.ssm.version == 1 else out[1]
+        names = getattr(getattr(xi, "device_mesh", None), "mesh_dim_names",
+                        None) or ()
+        pl = (xi.placements[names.index("model")]
+              if isinstance(xi, DTensor) and "model" in names else None)
+        seen.append(isinstance(pl, Shard) and pl.dim == xi.ndim - 1)
+        return out
+
+    ssm._in_proj = rec
+    return seen
 
 
 def _leaves(tree):
