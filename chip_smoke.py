@@ -155,8 +155,9 @@ just before and read just after:
   phase 15 (after phase 14's timings) and run on the host beside (a)
   and (b): every cell exits 0,
   FLOPs, collectives and ``argument_bytes`` equal across the two devices,
-  the single-pod cell's FLOPs 8.051346e13 per device (the attention on
-  each rank's own q heads); per-device FLOPs, bytes,
+  the single-pod cell's FLOPs 4.823678e13 per device (the attention on
+  each rank's own q heads, every weight gradient on the rank's own
+  share); per-device FLOPs, bytes,
   collectives and memory printed; (d) ``launch/dryrun.py`` for
   llama3.2-1b x ``prefill_32k`` cut to 2 layers at its published widths
   (``--n-layers 2``) on the single-pod mesh, fake ``cuda`` and fake
@@ -170,7 +171,14 @@ just before and read just after:
   and fake ``cpu`` tensors, two subprocesses started with (c) and (d):
   FLOPs, collectives and ``argument_bytes`` equal across the two
   devices, and the FLOPs per device equal to the CPU count, 4.768399e8
-  (each rank runs its own d_inner channels of every Mamba mixer).
+  (each rank runs its own d_inner channels of every Mamba mixer); (f)
+  and (g), the two sharded paths that torch 2.11's DTensor once
+  rejected, the same way at 256 fake ranks, started with (c)-(e):
+  falcon-mamba-7b x ``train_4k`` cut to 2 layers (the embedding's rows
+  and their gradient on local tensors), 1.289349e13 FLOPs per device,
+  and zamba2-7b x ``decode_32k`` cut to 2 layers (one call site of the
+  shared block, its kv heads split over the model axis: the decode
+  attention on local shards), 7.256310e8.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2862,8 +2870,9 @@ TRAIN_DRYRUN_CELL = ("llama3.2-1b", "train_4k")  # phase 15 (c)
 TRAIN_DRYRUN_TIMEOUT_S = 600  # from its start in phase 15
 # (c)'s per-device FLOPs on the single-pod mesh (256 ranks), to the 7
 # digits the CPU sweep reads: the attention runs each rank's own q heads
-# (2 of 32), and so does the gradient of ``wo``
-TRAIN_DRYRUN_FLOPS = "8.051346e+13"
+# (2 of 32), and so does the gradient of ``wo``; every weight gradient,
+# the tied LM head's included, runs on the rank's own share
+TRAIN_DRYRUN_FLOPS = "4.823678e+13"
 DRYRUN_MESHES = ("single", "multi")
 # phase 15 (d): the serving prefill at published widths, 2 layers, on the
 # single-pod mesh; its dense products' FLOPs per device, to the 7 digits
@@ -2879,6 +2888,22 @@ PREFILL_DRYRUN_MM_FLOPS = "9.964981e+11"
 SSM_DRYRUN_CELL = ("falcon-mamba-7b", "decode_32k")
 SSM_DRYRUN_LAYERS = 2
 SSM_DRYRUN_FLOPS = "4.768399e+08"
+# phase 15 (f): the Mamba-1 train step at published widths and the
+# production shape, 2 layers, on the single-pod mesh: the embedding's
+# rows and their gradient on local tensors (torch 2.11's DTensor
+# ``aten.index_put`` rejects split indices); its FLOPs per device, to the
+# 7 digits of the CPU count (every weight gradient on the rank's share)
+SSM_TRAIN_DRYRUN_CELL = ("falcon-mamba-7b", "train_4k")
+SSM_TRAIN_DRYRUN_LAYERS = 2
+SSM_TRAIN_DRYRUN_FLOPS = "1.289349e+13"
+# phase 15 (g): the hybrid's decode at published widths, 2 layers (one
+# call site of the shared block, its 32 kv heads split over the model
+# axis of 16), on the single-pod mesh: the decode attention on local
+# shards (torch 2.11 rejects the DTensor einsum there); its FLOPs per
+# device, to the 7 digits of the CPU count
+HYBRID_DRYRUN_CELL = ("zamba2-7b", "decode_32k")
+HYBRID_DRYRUN_LAYERS = 2
+HYBRID_DRYRUN_FLOPS = "7.256310e+08"
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
 _CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
@@ -3359,6 +3384,14 @@ def main() -> int:
                                    n_layers=PREFILL_DRYRUN_LAYERS)
     ssm_dryrun = start_dryruns(root, SSM_DRYRUN_CELL, "ssm",
                                meshes=("single",), n_layers=SSM_DRYRUN_LAYERS)
+    # (f)'s Mamba train cells and (g)'s hybrid decode cells: the two paths
+    # torch 2.11's DTensor rejected
+    ssm_train_dryrun = start_dryruns(root, SSM_TRAIN_DRYRUN_CELL, "ssm_train",
+                                     meshes=("single",),
+                                     n_layers=SSM_TRAIN_DRYRUN_LAYERS)
+    hybrid_dryrun = start_dryruns(root, HYBRID_DRYRUN_CELL, "hybrid",
+                                  meshes=("single",),
+                                  n_layers=HYBRID_DRYRUN_LAYERS)
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
@@ -3386,6 +3419,18 @@ def main() -> int:
     print(f"[{tag}] phase 15 (e) {SSM_DRYRUN_CELL[0]} cut to "
           f"{SSM_DRYRUN_LAYERS} layers x {SSM_DRYRUN_CELL[1]} single: "
           f"{flops:.6e} FLOPs per device == {SSM_DRYRUN_FLOPS}")
+    for key, label, run, cell, layers, want in (
+            ("ssm_train_dryrun", "(f)", ssm_train_dryrun,
+             SSM_TRAIN_DRYRUN_CELL, SSM_TRAIN_DRYRUN_LAYERS,
+             SSM_TRAIN_DRYRUN_FLOPS),
+            ("hybrid_dryrun", "(g)", hybrid_dryrun, HYBRID_DRYRUN_CELL,
+             HYBRID_DRYRUN_LAYERS, HYBRID_DRYRUN_FLOPS)):
+        cost[key] = collect_dryruns(tag, label, run,
+                                    timeout=TRAIN_DRYRUN_TIMEOUT_S)
+        flops = cost[key]["single"]["flops"]
+        assert f"{flops:.6e}" == want, (label, flops, want)
+        print(f"[{tag}] phase 15 {label} {cell[0]} cut to {layers} layers x "
+              f"{cell[1]} single: {flops:.6e} FLOPs per device == {want}")
     print(f"[{tag}] cost model: {json.dumps(cost)}")
     print(f"[{tag}] phase 15 wall {time.perf_counter() - t0:.2f} s; script "
           f"wall so far {time.perf_counter() - t_script:.2f} s")

@@ -340,19 +340,42 @@ def batch_only(t):
     return t.redistribute(t.device_mesh, pl)
 
 
-def summed(t):
-    """``batch_only(t)`` where autograd records nothing (serving): the
-    output of a row-split product (``wo`` of the attention or the MLP), a
-    Partial sum over the model axis, all-reduced before the residual add,
-    as GSPMD sums it after Megatron's row-split products.  Left Partial,
-    the residual stream reaches the next norm and every column-split
-    product (``wq``/``wk``/``wv``/``wi``/``wg``) as a Partial sum, and
-    DTensor gathers the weight to compute the whole product on every
-    rank.  While autograd records (a train step) ``t`` passes unchanged,
-    and so does a plain tensor or one on a model axis of 1."""
-    if torch.is_grad_enabled():
+def summed(t, like=None):
+    """The output of a row-split product (``wo`` of the attention or the
+    MLP, a Mamba mixer's ``out_proj``), a Partial sum over the model
+    axis, reduced before the residual add, as GSPMD sums it after
+    Megatron's row-split products.  Left Partial, the residual stream
+    reaches the next norm and every column-split product
+    (``wq``/``wk``/``wv``/``wi``/``wg``, the LM head) as a Partial sum,
+    and DTensor splits the product's contraction instead of its columns.
+    Where autograd records nothing (serving) ``t`` is ``batch_only``.  In
+    a train step each Partial placement is all-reduced, and the gradient
+    goes back Replicate there (the residual's gradient, a Partial sum of
+    the column-split products' input gradients, all-reduced), so that
+    the product's backward, its weight gradient included, runs on the
+    rank's own rows; left Partial, both ran whole on every rank.  A mesh
+    dimension that splits ``like``, the residual the sum joins, is left
+    to DTensor's add, which reduce-scatters onto it (sequence
+    parallelism).  A plain tensor, or one on a model axis of 1, passes
+    unchanged."""
+    if not torch.is_grad_enabled():
+        return batch_only(t)
+    if not isinstance(t, DTensor):
         return t
-    return batch_only(t)
+    split = (tuple(like.placements) if isinstance(like, DTensor)
+             else (None,) * t.device_mesh.ndim)
+    js = [j for j, (p, q) in enumerate(zip(t.placements, split))
+          if isinstance(p, Partial) and not isinstance(q, Shard)]
+
+    def replicated(x):
+        pl = list(x.placements)
+        for j in js:
+            pl[j] = Replicate()
+        if pl == list(x.placements):
+            return x
+        return x.redistribute(x.device_mesh, pl)
+
+    return _relaid(t, replicated, replicated) if js else t
 
 
 class _Relaid(torch.autograd.Function):
@@ -420,6 +443,28 @@ def grad_replicated(t, j: int):
         if isinstance(pl[j], Replicate):
             return g
         pl[j] = Replicate()
+        return g.redistribute(g.device_mesh, pl)
+
+    return _relaid(t, _same, bwd)
+
+
+def grad_like(t):
+    """``t`` itself, whose gradient is laid out as ``t`` is (a Partial
+    placement of ``t`` taken as Replicate) on its way back.  Placed on the
+    LM head's logits, which the loss hands a gradient laid out as the
+    labels (under sequence parallelism split on the sequence; the head's
+    backward would gather it, and every model rank would compute the
+    whole vocabulary's weight gradient), and on the embedding's rows,
+    whose gradient may come back a Partial sum (``common.lookup``).  A
+    plain tensor, or one that records no gradient, passes unchanged."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in t.placements)
+
+    def bwd(g):
+        if tuple(g.placements) == pl:
+            return g
         return g.redistribute(g.device_mesh, pl)
 
     return _relaid(t, _same, bwd)
@@ -612,10 +657,21 @@ def split_locally(t, dim: int, j: int):
     return t.redistribute(t.device_mesh, pl)
 
 
-def splits_q_heads(t, groups: int) -> bool:
-    """Whether ``t`` lies on a mesh whose ``model`` axis cannot split
-    whole groups of the ``groups`` kv heads (``split_q_heads``)."""
-    return _model_dim(t, groups) is not None
+def split_as_rows(t, w):
+    """DTensor ``t`` with its last dimension split over each mesh
+    dimension that splits the rows of the 2-D DTensor ``w`` and
+    replicates ``t``: a local slice, with no collective.  For ``t @ w``:
+    DTensor's product takes the same columns of ``t`` in the forward, but
+    a ``t`` left whole meets the output's gradient whole in the backward,
+    and every rank computes the gradient of all of ``w``'s rows.  Anything
+    else passes unchanged."""
+    if not (isinstance(t, DTensor) and isinstance(w, DTensor)) or w.ndim != 2:
+        return t
+    for j, p in enumerate(w.placements):
+        if (isinstance(p, Shard) and p.dim == 0
+                and isinstance(t.placements[j], Replicate)):
+            t = split_locally(t, -1, j)
+    return t
 
 
 def split_q_heads(t, dim: int, groups: int, *, replicated: bool = True):

@@ -21,7 +21,7 @@ from torch.distributed.tensor import DTensor
 
 from ..dist.sharding import (batch_only, constrain, grad_whole_dim,
                              local_write, on_local_shards, split_q_heads,
-                             splits_q_heads, whole_dim)
+                             whole_dim)
 from .common import apply_rope, dtype_of, einsum, matmul, recompute
 
 NEG_INF = -1e30
@@ -101,10 +101,11 @@ class Attention(nn.Module):
         g = nq // nkv
         pos = torch.as_tensor(pos, device=x.device)
         per_slot = pos.ndim == 1
-        if splits_q_heads(x, nkv):
-            # the products take the local columns of ``wq``/``wk``/``wv``
-            # (DTensor would gather ``wk``/``wv`` to meet a Partial ``x``)
-            x = batch_only(x)
+        # the products take the local columns of ``wq``/``wk``/``wv``
+        # (DTensor would gather ``wk``/``wv`` to meet a Partial ``x``, or
+        # split the contraction and leave q Partial), so that q and the
+        # new k/v split on their heads as the cache does
+        x = batch_only(x)
         q, k, v = self.project_qkv(x)
         if rope:
             pp = (pos[:, None] if per_slot else pos.expand(B, 1)).to(torch.int32)
@@ -126,16 +127,37 @@ class Attention(nn.Module):
                 offsets=("qheads",), uneven=("qheads",), bound=pos, group=g)
             out = whole_dim(out, 2, nq).reshape(B, 1, nq * hd)
             return matmul(out, self.wo), cache
-        S = cache["k"].shape[1]
         qh = (whole_dim(q, 2, nkv) * hd ** -0.5).reshape(B, nkv, g, hd)
-        s = einsum("bkgh,bskh->bkgs", qh, cache["k"]).to(torch.float32)
-        kv_pos = torch.arange(S, device=x.device)[None, None, None, :]
         bound = pos[:, None, None, None] if per_slot else pos
-        s = torch.where(kv_pos <= bound, s, NEG_INF)
-        w = torch.softmax(s, dim=-1)
-        out = einsum("bkgs,bskh->bkgh", w.to(cache["v"].dtype), cache["v"])
-        out = out.reshape(B, 1, nq * hd)
+        out = decode_kv_heads(qh, cache["k"], cache["v"], bound)
         return matmul(out, self.wo), cache
+
+
+def decode_kv_heads(qh, k, v, bound=None):
+    """One-token attention of q (B, nkv, g, hd), scaled, against the
+    cache k/v (B, S, nkv, hd), keys past ``bound`` masked (None: none)
+    -> (B, 1, nkv * g * hd).  DTensors run on local shards, split by
+    batch and kv heads (a DTensor einsum would flatten the batch with a
+    split kv-head dimension, which torch 2.11 rejects); a Partial q (the
+    cross attention's, after a residual left Partial) is reduced first,
+    as ``on_local_shards`` would gather the cache to meet it."""
+    return on_local_shards(
+        _decode_kv_heads, (batch_only(qh), k, v),
+        ({"batch": 0, "heads": 1}, {"batch": 0, "heads": 2},
+         {"batch": 0, "heads": 2}),
+        {"batch": qh.shape[0], "heads": qh.shape[1]},
+        {"batch": 0, "heads": 2}, bound=bound)
+
+
+def _decode_kv_heads(qh, k, v, *, bound):
+    """``decode_kv_heads`` on plain tensors."""
+    s = einsum("bkgh,bskh->bkgs", qh, k).to(torch.float32)
+    if bound is not None:
+        kv_pos = torch.arange(k.shape[1], device=qh.device)
+        s = torch.where(kv_pos[None, None, None, :] <= bound, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = einsum("bkgs,bskh->bkgh", w.to(v.dtype), v)
+    return out.reshape(out.shape[0], 1, -1)
 
 
 def _kv_runs(h0: int, n: int, group: int) -> list:

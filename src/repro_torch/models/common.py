@@ -20,7 +20,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import gathered, grad_whole_dim, whole_dim
+from ..dist.sharding import (gathered, grad_like, grad_whole_dim, split_as_rows,
+                              whole_dim)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -39,10 +40,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dimension 1 (``gathered``: the all-gather before a product of
     sequence parallelism, whose gradient goes back as the product gives
     it), and so is the gradient that reaches the product's backward
-    (``grad_whole_dim``), on every torch version and mesh."""
+    (``grad_whole_dim``), on every torch version and mesh.  Where ``b``'s
+    rows are split over a mesh dimension that replicates ``a`` (the
+    attention's output, its heads gathered where they do not split
+    evenly, before ``wo``), ``a`` takes its own columns first
+    (``split_as_rows``), so that the weight's gradient runs on the rank's
+    own rows."""
     dt = torch.promote_types(a.dtype, b.dtype)
     if b.ndim == 2 and a.ndim == 3 and isinstance(a, DTensor):
-        out = torch.matmul(gathered(a, 1).to(dt), b.to(dt))
+        a = split_as_rows(gathered(a, 1), b)
+        out = torch.matmul(a.to(dt), b.to(dt))
         return grad_whole_dim(out, 1)
     return torch.matmul(a.to(dt), b.to(dt))
 
@@ -54,34 +61,32 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` of ``table`` (an embedding).  A DTensor table sharded
-    by rows (vocab over the model axis) is gathered first
-    (``dist.sharding.whole_dim``): DTensor's ``aten.index.Tensor`` rule
-    does not hold for it.  Where no gradient is taken (serving), or where
-    two mesh axes split the indices, each rank reads the replicated
-    table's rows of its own indices and the result keeps the indices'
-    layout; the table's gradient is then each rank's sum over its own
-    indices: a Partial sum over the mesh axes that split them, the same
-    on every rank of the others (``local_rows``).  Torch 2.11's rules
-    reject indices whose batch dimension is split over two mesh axes, as
-    ("pod", "data") splits it on the multi-pod mesh, and the gradient of
-    indices split over batch and sequence (sequence parallelism:
-    ``aten.index_put``, "Shard dim -1 ... must be normalized")."""
-    table = whole_dim(table, 0)
-    if (isinstance(idx, DTensor) and isinstance(table, DTensor)
-            and all(p.is_replicate() for p in table.placements)
-            and (not torch.is_grad_enabled() or sum(
-                isinstance(p, Shard) for p in idx.placements) > 1)):
+    """Rows ``idx`` of ``table`` (an embedding).  DTensor indices: each
+    rank reads the rows of its own indices from its copy of the table,
+    gathered whole first (``dist.sharding.whole_dim``; a row-split table
+    breaks DTensor's ``aten.index.Tensor`` rule), and the result keeps
+    the indices' layout (``local_rows``).  The table's gradient is then
+    each rank's sum over its own indices: a Partial sum over the mesh
+    axes that split them, the same on every rank of the others.  The
+    rows' gradient, a Partial sum over the model axis where it comes
+    from the first products' input gradients, is laid out as the rows
+    before the local read's backward (``grad_like``).  DTensor's own
+    ``aten.index_put`` backward is never reached: torch 2.11's rule
+    rejects every split of the indices ("Shard dim -1 in placements ...
+    must be normalized"; on a split sequence a shape mismatch), where
+    2.13's splits the gradient by itself."""
+    if isinstance(idx, DTensor) and isinstance(table, DTensor):
+        table = whole_dim(whole_dim(table, 0), 1)
         local = table.to_local(grad_placements=[
             Partial() if isinstance(p, Shard) else Replicate()
             for p in idx.placements])
         rows = local[idx.to_local().long()]  # local_rows
         shape = tuple(idx.shape) + tuple(table.shape[1:])
-        return DTensor.from_local(
+        return grad_like(DTensor.from_local(
             rows, idx.device_mesh, idx.placements, run_check=False,
             shape=torch.Size(shape),
-            stride=torch.empty(shape, device="meta").stride())
-    return table[idx.long()]
+            stride=torch.empty(shape, device="meta").stride()))
+    return whole_dim(table, 0)[idx.long()]
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float,

@@ -22,9 +22,9 @@ import torch
 from torch import nn
 
 from ..dist.sharding import summed
-from .attention import Attention, init_cache
-from .common import (Norm, draw_weights, dtype_of, einsum, lookup, matmul,
-                     recompute, sinusoidal_positions, softmax_cross_entropy)
+from .attention import Attention, decode_kv_heads, init_cache
+from .common import (Norm, draw_weights, dtype_of, lookup, matmul, recompute,
+                     sinusoidal_positions, softmax_cross_entropy)
 from .config import ModelConfig
 from .mlp import MLP
 from .transformer import check_carry
@@ -45,7 +45,7 @@ class EncBlock(nn.Module):
     def forward(self, x, positions, *, q_chunk, kv_chunk):
         h, _ = self.attn(self.ln1(x), positions, causal=False,
                          q_chunk=q_chunk, kv_chunk=kv_chunk, use_rope=False)
-        # serving sums each row-split product's Partial output before the
+        # each row-split product's Partial output is summed before the
         # residual add (``summed``): the next products, and the prefill's
         # cross ``wk``/``wv`` on ``enc_out``, take the rank's own columns
         x = x + summed(h)
@@ -69,7 +69,7 @@ class DecBlock(nn.Module):
     def forward(self, x, positions, enc_out, *, q_chunk, kv_chunk):
         h, _ = self.self_attn(self.ln1(x), positions, q_chunk=q_chunk,
                               kv_chunk=kv_chunk, use_rope=False)
-        # serving sums each row-split product's Partial output before the
+        # each row-split product's Partial output is summed before the
         # residual add (``summed``), as ``EncBlock`` does
         y = x + summed(h)
         # a float32 enc_out promotes a bfloat16 decoder's residual here
@@ -223,10 +223,8 @@ def encdec_decode_step(cfg: ModelConfig, model: EncDec, token, cache, pos):
         # no mask)
         q = matmul(blk.ln2(y), blk.cross_attn.wq).reshape(B, nkv, g, hd) \
             * hd ** -0.5
-        s = einsum("bkgh,bskh->bkgs", q, ck).to(torch.float32)
-        w = torch.softmax(s, dim=-1)
-        o = einsum("bkgs,bskh->bkgh", w.to(cv.dtype), cv)
-        y = y + matmul(o.reshape(B, 1, nq * hd), blk.cross_attn.wo)
+        o = decode_kv_heads(q, ck, cv)
+        y = y + matmul(o, blk.cross_attn.wo)
         y = y + blk.mlp(blk.ln3(y))
         check_carry(x, y, f"decoder layer {i}")
         x = y

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..dist.sharding import local_write, summed
+from ..dist.sharding import grad_like, local_write, summed
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .common import (Norm, draw_weights, dtype_of, lookup, matmul,
@@ -87,7 +87,7 @@ class Block(nn.Module):
             out, aux = self.mlp(self.ln2(x)), None
         else:
             out, aux = self.moe(self.ln2(x))
-        return x + (summed(out) if sum_out else out), aux
+        return x + (summed(out, x) if sum_out else out), aux
 
     def forward(self, x, positions, *, q_chunk, kv_chunk, cache=None,
                 q_spec=None, kv_spec=None):
@@ -101,10 +101,10 @@ class Block(nn.Module):
         if cache is not None:
             attn_mod._update_slice(cache["k"], k, 0)
             attn_mod._update_slice(cache["v"], v, 0)
-        # serving sums the Partial output of each row-split product before
-        # the residual add (``summed``), so that the next products take the
-        # rank's own columns of their weights
-        return self._ffn(x + summed(h), sum_out=True)
+        # the Partial output of each row-split product is summed before the
+        # residual add (``summed``), so that the next products, and their
+        # weight gradients, take the rank's own columns of their weights
+        return self._ffn(x + summed(h, x), sum_out=True)
 
     def decode(self, x, cache, pos):
         h, _ = self.attn.decode(self.ln1(x), cache, pos)
@@ -125,8 +125,8 @@ class SSMBlock(nn.Module):
         """The reference's ``_ssm_block_fwd``: returns (x, final state)."""
         out, st = ssm_mod.block_fn(self.cfg)(self.cfg, self.ssm, self.ln(x),
                                              state=state)
-        # serving sums the mixer's row-split output before the residual
-        # add (``summed``), as ``Block`` does
+        # the mixer's row-split output is summed before the residual add
+        # (``summed``), as ``Block`` does
         return x + summed(out), st
 
     def decode(self, x, state):
@@ -208,7 +208,9 @@ class LM(nn.Module):
 
     def _head(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return matmul(x, head)
+        # the logits' gradient comes back split as they are, on the
+        # vocabulary (``grad_like``)
+        return grad_like(matmul(x, head))
 
     def layers(self):
         """Every block in cache order: the dense-first ones, then the rest."""

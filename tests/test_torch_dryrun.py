@@ -52,7 +52,19 @@ Mamba mixers take their own d_inner columns of the replicated
 and C on every rank, 1.026x for ``in_proj`` alone, 1.0076x in all); and
 qwen2-0.5b's attention
 (``bmm``) runs rank 0's 4 of its 14 q heads on a quarter of the batch (a
-replicated q split on its heads)."""
+replicated q split on its heads).
+
+The train step computes each rank's own share of the weight gradients:
+llama3.2-1b at its published widths, cut to 2 layers over 1,024 tokens at
+global batch 16, at edge 4, and falcon-mamba-7b at its published widths
+and its production ``train_4k`` shape, cut to 2 layers, at edge 16
+(``TRAIN_PUBLISHED``), each also at one rank.  Per device their dense
+products (``mm``) are at most 1.02x the one-rank count over the ranks.
+Before, the LM head's weight gradient ran on the whole vocabulary on
+every model rank (its gradient came back split on the sequence, or
+whole, and falcon-mamba-7b's residual stream reached the head as a
+Partial sum): 1.635x at edge 4 for llama3.2-1b and 3.54x at edge 16 for
+falcon-mamba-7b."""
 import json
 import os
 import pathlib
@@ -85,6 +97,12 @@ PREFILL_ARCHS = ("llama3.2-1b", "qwen2-0.5b", "falcon-mamba-7b", "zamba2-7b")
 # qwen2-0.5b: 14 q heads over 2 kv heads, which the model axis (4) does
 # not divide; rank 0 holds ceil(14 / 4) of them
 QWEN_HEADS, QWEN_RANK0_HEADS = 14, 4
+# the train step's cuts at published widths: (mesh edge, cut)
+TRAIN_PUBLISHED = {
+    "llama3.2-1b": ("4", dict(published=True, n_layers=2, seq_len=1024,
+                              global_batch=16)),
+    "falcon-mamba-7b": ("16", dict(published=True, n_layers=2)),
+}
 CONVS = {"aten.convolution", "aten._convolution", "aten.convolution_backward",
          "aten.cudnn_convolution", "aten.convolution_overrideable",
          "aten._slow_conv2d_forward"}
@@ -122,6 +140,11 @@ def runs(tmp_path_factory):
             jobs[f"{sub}:{arch}"] = (scale, [
                 sys.executable, worker, arch, "prefill_32k", "single",
                 json.dumps(PREFILL_CUT), str(out / sub)])
+    for arch, (scale, cut) in TRAIN_PUBLISHED.items():
+        for sc, sub in ((scale, "tpub"), ("1", "tpub1")):
+            jobs[f"{sub}:{arch}"] = (sc, [
+                sys.executable, worker, arch, "train_4k", "single",
+                json.dumps(cut), str(out / sub)])
     procs = {}
     for name, (scale, cmd) in jobs.items():
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -133,7 +156,7 @@ def runs(tmp_path_factory):
     logs = {}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
-        if name.startswith(("cut", "pre")):  # each cut's test reports its own
+        if name.startswith(("cut", "pre", "tpub")):  # each reports its own
             logs[name] = (p.returncode, stderr)
             continue
         assert p.returncode == 0, f"{name}:\n{stderr[-3000:]}"
@@ -305,3 +328,21 @@ def test_prefill_attention_runs_each_ranks_own_q_heads(runs):
     b4, b1 = ops4["aten.bmm"]["flops"], ops1["aten.bmm"]["flops"]
     share = b1 / 4 * QWEN_RANK0_HEADS / QWEN_HEADS
     assert 0 < b4 <= share * (1 + 1e-9), b4 / share
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_PUBLISHED))
+def test_train_weight_gradients_run_on_each_ranks_share(runs, arch):
+    """At edge e a rank holds 1 / e of the batch and of every weight the
+    model axis splits: its dense products, forward, input gradients and
+    weight gradients (the LM head's included), are 1 / e**2 of the
+    one-rank count."""
+    out, logs = runs
+    mm = []
+    for sub in ("tpub", "tpub1"):
+        rc, stderr = logs[f"{sub}:{arch}"]
+        assert rc == 0, stderr[-3000:]
+        stem = f"{arch}__train_4k__single.ops.json"
+        mm.append(json.loads((out / sub / stem).read_text())
+                  ["aten.mm"]["flops"])
+    ranks = int(TRAIN_PUBLISHED[arch][0]) ** 2
+    assert mm[0] <= 1.02 * mm[1] / ranks, ranks * mm[0] / mm[1]

@@ -53,7 +53,14 @@ not splitting 4 ways; SMOKE's layer 1 took a Partial q before).  In the
 Mamba cases (``SSM_CASES``) the worker records whether each mixer's
 ``in_proj`` product gave its x split on d_inner over the model axis: so
 it must be in every layer, in training and in serving, each rank running
-its own channels (Mamba-1) or heads (Mamba-2)."""
+its own channels (Mamba-1) or heads (Mamba-2).
+
+Two layouts that torch 2.11's DTensor rejects (2.13 runs both): in the
+train cases ``EMBED_CASES`` the gradient that reaches the embedding's
+index holds no Partial placement (the rows' gradient is reduced first),
+and in the serving cases ``SPLIT_KV_CASES``, whose model axis splits the
+kv heads, every decode attention call runs its scores and values on
+local shards, each rank on its own kv heads."""
 import os
 import pathlib
 import pickle
@@ -126,6 +133,11 @@ SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
 # the cases whose Mamba mixers run each rank's own channels
 SSM_CASES = ("ssm_2x2", "ssm_2x2_1k", "zamba2_2x2", "falcon_float32",
              "zamba2_float32", "zamba2_float32_1x4")
+# the layouts torch 2.11 rejects: train cases whose embedding's gradient
+# comes back a Partial sum over the model axis, and serving cases whose
+# decode splits the kv heads over it
+EMBED_CASES = ("llama_tp_2x2", "ssm_2x2", "zamba2_2x2")
+SPLIT_KV_CASES = ("llama_float32", "zamba2_float32", "whisper_float32")
 
 
 def free_port() -> int:
@@ -361,3 +373,35 @@ def test_mamba_mixers_run_each_ranks_own_channels(results, name):
     else:  # 2 steps of 2 microbatches, and the recompute
         assert len(flags) % layers == 0 and len(flags) >= 4 * layers, flags
     assert all(flags), flags
+
+
+@pytest.mark.parametrize("name", EMBED_CASES)
+def test_embedding_gradient_holds_no_partial_sum(results, name):
+    """The gradient handed to the embedding's row read (each microbatch
+    of both steps) is laid out as the rows: Shard or Replicate on every
+    mesh dimension, a local tensor for the read's own backward (torch
+    2.11's DTensor ``aten.index_put`` rejects split indices)."""
+    _, port = pair(results, name)
+    flags = port["embed_grad_partial"]
+    assert len(flags) == 4 and not any(flags), flags
+
+
+@pytest.mark.parametrize("name", SPLIT_KV_CASES)
+def test_split_kv_decode_runs_on_local_shards(results, name):
+    """Each decode step's attention, in every attention layer (every
+    call site of the hybrid's shared block; whisper's self and cross
+    attention), runs on local shards, each rank on its own kv heads."""
+    from repro_torch.models.transformer import hybrid_attn_layers
+
+    _, port = pair(results, name)
+    case = next(c for c in SERVE if c["name"] == name)
+    cfg = RC.get_config(case["arch"], smoke=True)
+    if cfg.family == "hybrid":
+        layers = hybrid_attn_layers(cfg)
+    elif cfg.family == "encdec":
+        layers = 2 * cfg.n_dec_layers
+    else:
+        layers = cfg.n_layers
+    local = (True, cfg.n_kv_heads // case["mesh"][1])
+    assert port["decode_kv_local"] == [local] * (4 * layers), \
+        port["decode_kv_local"]

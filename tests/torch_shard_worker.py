@@ -23,7 +23,12 @@ restored onto a 2-rank (2, 1) mesh, one more step) and ``resize`` (a
 ``Trainer`` on (4, 1) resized onto (2, 2), one more step).  In every case
 the port records, per Mamba mixer call and in call order, whether the
 ``in_proj`` product's x output was split on d_inner over the model axis
-(``ssm_by_channel``).
+(``ssm_by_channel``), in call order whether the gradient handed to the
+embedding's row read held a Partial placement (``embed_grad_partial``),
+and per decode attention
+call on the kv heads' split whether it ran on local shards and how many kv
+heads a rank held (``decode_kv_local``; torch 2.11 rejects the DTensor
+einsum there).
 """
 import contextlib
 import os
@@ -216,9 +221,12 @@ def port_rank(rank, port, cases, tmp, out_path):
 
     out = {}
     by_channel = _record_mixers()
+    layouts = _record_layouts()
     for case in cases:
         t0 = time.perf_counter()
         by_channel.clear()
+        for v in layouts.values():
+            v.clear()
         try:
             cfg = cfg_of(case)
             res = {}
@@ -296,6 +304,8 @@ def port_rank(rank, port, cases, tmp, out_path):
                 res["decode_logits"] = dl
                 res["decode_cache"] = host(cache)
             out[case["name"]] = dict(res, ssm_by_channel=list(by_channel),
+                                     **{k: list(v) for k, v in
+                                        layouts.items()},
                                      seconds=time.perf_counter() - t0)
         except Exception:  # recorded; the test reports it
             out[case["name"]] = {"error": f"rank {rank}: "
@@ -325,10 +335,10 @@ def _prefill_layouts():
     seen = {"summed_partial": [], "q_by_head": []}
     summed, split = transformer.summed, attention.split_q_heads
 
-    def summed_rec(t):
+    def summed_rec(t, *a):
         seen["summed_partial"].append(isinstance(t, DTensor) and any(
             isinstance(p, Partial) for p in t.placements))
-        return summed(t)
+        return summed(t, *a)
 
     def split_rec(t, dim, groups, **kw):
         out = split(t, dim, groups, **kw)
@@ -370,6 +380,37 @@ def _record_mixers() -> list:
         return out
 
     ssm._in_proj = rec
+    return seen
+
+
+def _record_layouts() -> dict:
+    """From now on record, in call order: whether the gradient handed to
+    the embedding's row read (``common.lookup``'s rows, after ``grad_like``)
+    held a Partial placement (``embed_grad_partial``), and for each decode
+    attention call on the kv heads (``attention._decode_kv_heads``)
+    whether its operands were local shards and the kv heads of the
+    rank's cache shard (``decode_kv_local``).  Returns the dict of lists
+    that receive them."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.models import attention, common
+
+    seen = {"embed_grad_partial": [], "decode_kv_local": []}
+    like, kv_heads = common.grad_like, attention._decode_kv_heads
+
+    def like_rec(t):
+        if isinstance(t, DTensor) and t.requires_grad:
+            t.register_hook(lambda g: seen["embed_grad_partial"].append(
+                any(isinstance(p, Partial) for p in g.placements)))
+        return like(t)
+
+    def kv_rec(qh, k, v, **kw):
+        seen["decode_kv_local"].append(
+            (not any(isinstance(a, DTensor) for a in (qh, k, v)),
+             int(k.shape[2])))
+        return kv_heads(qh, k, v, **kw)
+
+    common.grad_like, attention._decode_kv_heads = like_rec, kv_rec
     return seen
 
 
