@@ -178,7 +178,10 @@ just before and read just after:
   and their gradient on local tensors), 1.289349e13 FLOPs per device,
   and zamba2-7b x ``decode_32k`` cut to 2 layers (one call site of the
   shared block, its kv heads split over the model axis: the decode
-  attention on local shards), 7.256310e8.
+  attention on local shards), 7.256310e8; (h) the same way for
+  deepseek-moe-16b x ``train_4k`` cut to 2 layers (one dense, one MoE:
+  each rank routes its own tokens and runs its own experts on its own
+  capacity slots), 1.193249e13 FLOPs per device.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2904,6 +2907,15 @@ SSM_TRAIN_DRYRUN_FLOPS = "1.289349e+13"
 HYBRID_DRYRUN_CELL = ("zamba2-7b", "decode_32k")
 HYBRID_DRYRUN_LAYERS = 2
 HYBRID_DRYRUN_FLOPS = "7.256310e+08"
+# phase 15 (h): the MoE train step at published widths and the production
+# shape, 2 layers (one dense, one MoE), on the single-pod mesh: each rank
+# routes its own tokens and runs its own 4 experts on its data rank's 960
+# of the 15,360 capacity slots (the expert products on local blocks,
+# outside DTensor's choice of layout); its FLOPs per device, to the 7
+# digits of the CPU count
+MOE_TRAIN_DRYRUN_CELL = ("deepseek-moe-16b", "train_4k")
+MOE_TRAIN_DRYRUN_LAYERS = 2
+MOE_TRAIN_DRYRUN_FLOPS = "1.193249e+13"
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
 _CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
@@ -3392,6 +3404,10 @@ def main() -> int:
     hybrid_dryrun = start_dryruns(root, HYBRID_DRYRUN_CELL, "hybrid",
                                   meshes=("single",),
                                   n_layers=HYBRID_DRYRUN_LAYERS)
+    # (h)'s MoE train cells: each rank on its own experts and slots
+    moe_train_dryrun = start_dryruns(root, MOE_TRAIN_DRYRUN_CELL, "moe_train",
+                                     meshes=("single",),
+                                     n_layers=MOE_TRAIN_DRYRUN_LAYERS)
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
@@ -3424,7 +3440,10 @@ def main() -> int:
              SSM_TRAIN_DRYRUN_CELL, SSM_TRAIN_DRYRUN_LAYERS,
              SSM_TRAIN_DRYRUN_FLOPS),
             ("hybrid_dryrun", "(g)", hybrid_dryrun, HYBRID_DRYRUN_CELL,
-             HYBRID_DRYRUN_LAYERS, HYBRID_DRYRUN_FLOPS)):
+             HYBRID_DRYRUN_LAYERS, HYBRID_DRYRUN_FLOPS),
+            ("moe_train_dryrun", "(h)", moe_train_dryrun,
+             MOE_TRAIN_DRYRUN_CELL, MOE_TRAIN_DRYRUN_LAYERS,
+             MOE_TRAIN_DRYRUN_FLOPS)):
         cost[key] = collect_dryruns(tag, label, run,
                                     timeout=TRAIN_DRYRUN_TIMEOUT_S)
         flops = cost[key]["single"]["flops"]

@@ -470,6 +470,45 @@ def grad_like(t):
     return _relaid(t, _same, bwd)
 
 
+def whole_local(t, keep=(), partial=()):
+    """This rank's local tensor of DTensor ``t``, made whole (gathered, a
+    Partial sum reduced) on every mesh dimension but those in ``keep``,
+    where its split stays (the rank's own slice).  Its gradient goes back
+    as a Partial sum over the mesh dimensions ``partial``, Replicate on
+    the others (a split kept as it is), and is reduced into ``t``'s
+    layout on the way back: a reduce-scatter onto a split, an all-reduce
+    onto a replicated dimension.  For a tensor read whole by a function
+    whose ranks each use another part of it (the MoE's tokens, gates and
+    router): each rank's gradient is its share.  DTensor's own gather
+    takes the gradient as Replicate, each rank's share as the whole, and
+    the other ranks' shares are dropped.  A plain tensor passes
+    unchanged."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = [p if j in keep else Replicate() for j, p in enumerate(t.placements)]
+    if pl != list(t.placements):
+        t = t.redistribute(t.device_mesh, pl)
+    return t.to_local(grad_placements=tuple(
+        p if j in keep else Partial() if j in partial else Replicate()
+        for j, p in enumerate(pl)))
+
+
+def chunk_of(mesh, dims, size: int) -> tuple:
+    """(start, stop) of this rank's chunk of ``size`` rows split over the
+    mesh dimensions ``dims``, flattened in mesh order, by DTensor's chunk
+    rule: ceil(size / ways) rows a rank, the last ranks fewer or none
+    where the ways do not divide ``size`` (the MoE's capacity slots over
+    the data ways: 15 over 16 in ``decode_32k``)."""
+    idx, ways = 0, 1
+    coord = mesh.get_coordinate()
+    for j in dims:
+        idx = idx * mesh.size(j) + coord[j]
+        ways *= mesh.size(j)
+    step = -(-size // ways)
+    start = min(idx * step, size)
+    return start, min(start + step, size)
+
+
 def _split_names(ts, dims, sizes, mesh, uneven=()) -> list:
     """Per mesh dimension, the logical dimension (a key of ``sizes``) that
     it splits in every tensor of ``ts`` that has it, or None (all

@@ -9,6 +9,9 @@ re-normalized) top-k router probabilities.
 
 ``C`` counts the whole call's tokens: in a batch, one sequence's pairs can
 be dropped because of the other sequences' routing, as in the reference.
+On a mesh (DTensors) each rank routes its own tokens and runs its own
+experts on its own capacity slots (``sharded_moe``), as GSPMD splits the
+reference's program; the slots stay those of the whole call.
 
 Supports DeepSeekMoE fine-grained experts + shared experts (an always-on
 dense branch) and the Switch-style load-balance aux loss.
@@ -20,8 +23,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..dist.sharding import chunk_of, whole_local
 from .common import dtype_of, einsum, matmul
 from .mlp import MLP
 
@@ -67,13 +71,12 @@ def capacity(cfg, T: int) -> int:
     return max(C, m.top_k)
 
 
-def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
-    """Routing of tokens ``xt`` (T, d): float32 softmax router, top-k with
-    ``jax.lax.top_k``'s tie rule (the lower expert first among equal
-    probabilities: a stable descending sort), and each pair's slot in the
-    token-major running count of its expert."""
+def gates(cfg, router: torch.Tensor, xt: torch.Tensor):
+    """(probs, gate values, experts) of tokens ``xt`` (T, d): float32
+    softmax router and top-k with ``jax.lax.top_k``'s tie rule (the lower
+    expert first among equal probabilities: a stable descending sort),
+    the gate values renormalized if ``norm_topk_prob``."""
     m = cfg.moe
-    T, E = xt.shape[0], m.n_experts
     # float32 in the model; the train step's compute copy may hand a
     # bfloat16 router, which the product promotes as jnp's does
     logits = matmul(xt.to(torch.float32), router).to(torch.float32)
@@ -84,38 +87,39 @@ def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
     if m.norm_topk_prob:
         gate_vals = gate_vals / torch.clamp_min(
             gate_vals.sum(-1, keepdim=True), 1e-9)
-    C = capacity(cfg, T)
+    return probs, gate_vals, gate_idx
+
+
+def slots(cfg, gate_idx: torch.Tensor):
+    """(slot, keep, C) of the experts ``gate_idx`` (T, k) of a call's
+    tokens: each pair's slot in the token-major running count of its
+    expert, e*C + position, or E*C (the drop bin) where the pair overflows
+    its expert's C slots."""
+    E = cfg.moe.n_experts
+    C = capacity(cfg, gate_idx.shape[0])
     flat_e = gate_idx.reshape(-1)
     pos_in_e = torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1
     flat_pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
     keep = flat_pos < C
     slot = torch.where(keep, flat_e * C + flat_pos, E * C)
-    return Routing(probs, gate_vals, gate_idx, slot, keep, C)
+    return slot, keep, C
+
+
+def route(cfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
+    """Routing of tokens ``xt`` (T, d): ``gates`` and ``slots``."""
+    probs, gate_vals, gate_idx = gates(cfg, router, xt)
+    return Routing(probs, gate_vals, gate_idx, *slots(cfg, gate_idx))
 
 
 def moe_block(cfg, module: MoE, x):
-    """x: (B, S, d) -> (out, aux_loss).
-
-    On DTensors (a sharded step), the capacity dispatch has no sharding
-    rule (``index_put_`` by slot into a buffer the block makes, slot counts
-    by ``cumsum`` over every token of the call): the tokens and the router
-    are gathered (redistributed to Replicate) and the routing, dispatch and
-    combine run on each rank's whole local copy, the same on every rank;
-    the expert products stay DTensors, experts over the model axis, and
-    their output is gathered back.  The output returns to ``x``'s shards
-    (a Partial placement of ``x`` as Replicate)."""
+    """x: (B, S, d) -> (out, aux_loss).  DTensors: ``sharded_moe``."""
+    if isinstance(x, DTensor):
+        return sharded_moe(cfg, module, x)
     m = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, m.n_experts, m.top_k
-    mesh = x.device_mesh if isinstance(x, DTensor) else None
-    if mesh is not None:
-        # back to x's layout after (a Partial sum comes back reduced)
-        layout = [Replicate() if p.is_partial() else p for p in x.placements]
-        x, router = whole(x), whole(module.router)
-    else:
-        router = module.router
     xt = x.reshape(T, d)
-    r = route(cfg, router, xt)
+    r = route(cfg, module.router, xt)
     C = r.capacity
 
     # Dispatch by index: each kept pair's token id into its slot, then
@@ -130,14 +134,7 @@ def moe_block(cfg, module: MoE, x):
     eb = xpad[tok_for_slot[:E * C]].reshape(E, C, d)
 
     # Expert compute: batched products over the stacked expert weights.
-    if mesh is not None:
-        eb = replicated(eb, mesh)
-    h = F.silu(einsum("ecd,edf->ecf", eb, module.wg)) * einsum(
-        "ecd,edf->ecf", eb, module.wi)
-    eo = einsum("ecf,efd->ecd", h, module.wo)
-    if mesh is not None:
-        eo = whole(eo)
-    eo = eo.reshape(E * C, d)
+    eo = _experts(eb, module.wi, module.wg, module.wo).reshape(E * C, d)
     eo = torch.cat([eo, eo.new_zeros(1, d)])
 
     # Combine: gather back, weight by gate, sum a token's k pairs in slot
@@ -155,26 +152,128 @@ def moe_block(cfg, module: MoE, x):
     aux = m.router_aux_coef * E * torch.sum(me * ce)
 
     if m.n_shared_experts:
-        if mesh is None:
-            out = out + module.shared(xt)
-        else:
-            out = out + whole(module.shared(replicated(xt, mesh)))
-    out = out.reshape(B, S, d)
-    if mesh is None:
-        return out, aux
-    return (replicated(out, mesh).redistribute(mesh, layout),
-            replicated(aux, mesh))
+        out = out + module.shared(xt)
+    return out.reshape(B, S, d), aux
 
 
-def whole(t: DTensor) -> torch.Tensor:
-    """The whole of DTensor ``t`` as this rank's plain tensor: gathered
-    (redistributed to Replicate) first, so every rank holds the same."""
-    mesh = t.device_mesh
-    return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+def _experts(eb, wi, wg, wo):
+    """The expert products of capacity buffers ``eb`` (E, C, d) with the
+    stacked weights: SwiGLU, (E, C, d) out."""
+    h = F.silu(einsum("ecd,edf->ecf", eb, wg)) * einsum("ecd,edf->ecf", eb,
+                                                         wi)
+    return einsum("ecf,efd->ecd", h, wo)
 
 
-def replicated(t: torch.Tensor, mesh) -> DTensor:
-    """A whole tensor that every rank holds alike, as a replicated
-    DTensor."""
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False)
+def sharded_moe(cfg, module: MoE, x: DTensor):
+    """``moe_block`` on a mesh, each rank on its own share, as GSPMD splits
+    the reference's index dispatch over the data and the model axes.
+
+    - Routing: the router product, softmax and top-k of the rank's own
+      tokens (``x`` laid out on its tokens alone: its split of the batch
+      or the sequence kept), the router read whole; its gradient is a
+      Partial sum over the mesh dimensions that split the tokens.
+    - Slots: only the integer experts (T, k) are gathered; every rank
+      counts the slots of the whole call as one device does (C counts
+      every token: one data rank's pairs are dropped because of the
+      others' routing).
+    - Experts: a rank runs its model rank's experts (or, where the model
+      axis splits the experts' hidden size instead, all experts on its
+      own columns) on its data ranks' capacity rows ``chunk_of`` C (pod
+      x data; unevenly where the data ways do not divide C), as plain
+      batched products on its local weights and on the rows of its
+      slots, read from ``x`` gathered whole.  The weights' gradients are
+      Partial sums over the data axes, the tokens' over every axis that
+      splits the block (``whole_local``).
+    - Combine: the rank's outputs, weighted by their gates, summed into a
+      (T, d) buffer of zeros at their tokens in slot order j = 0..k-1; the
+      buffer, a Partial sum over the block's axes, is reduce-scattered
+      into ``x``'s token layout and stays a Partial sum over the model
+      axis, as the shared experts' row-split output does, for the
+      block's ``summed``.
+    - Shared experts: the dense ``MLP`` on ``x`` in its own layout.
+    - Aux loss: the reference's over all tokens, the mean router
+      probabilities summed over the ranks that split the tokens, the
+      top-1 counts from the gathered experts.
+
+    Returns (out, aux), a replicated aux."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E, k = B * S, m.n_experts, m.top_k
+    mesh = x.device_mesh
+    n = mesh.ndim
+    # the tokens' layout: a split of the batch or the sequence kept, any
+    # other placement (a Partial sum, a split of d_model) made whole
+    tok_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1)
+                   else Replicate() for p in x.placements)
+    if tuple(x.placements) != tok_pl:
+        x = x.redistribute(mesh, tok_pl)
+    tok_dims = [j for j, p in enumerate(tok_pl)
+                if isinstance(p, Shard) and mesh.size(j) > 1]
+    names = list(mesh.mesh_dim_names or ())
+    mj = names.index("model") if "model" in names else None
+    # the expert block: the model axis splits the experts (or their
+    # hidden size), the other axes the capacity rows
+    wi_pl = module.wi.placements[mj] if mj is not None else Replicate()
+    by_model = isinstance(wi_pl, Shard) and mesh.size(mj) > 1
+    c_dims = [j for j in range(n) if j != mj]
+    c_part = [j for j in c_dims if mesh.size(j) > 1]
+    part = c_part + ([mj] if by_model else [])
+
+    xl = x.to_local()
+    probs, gate_vals, gate_idx = gates(
+        cfg, whole_local(module.router, partial=tok_dims), xl.reshape(-1, d))
+
+    def by_token(t):  # the rank's (tokens, c) as a DTensor of (B, S, c)
+        c = t.shape[-1]
+        t = t.reshape(*xl.shape[:2], c).contiguous()
+        return DTensor.from_local(t, mesh, tok_pl,
+                                  run_check=False, shape=(B, S, c),
+                                  stride=(S * c, c, 1))
+
+    gate_idx = whole_local(by_token(gate_idx)).reshape(T, k)
+    gate_vals = whole_local(by_token(gate_vals), partial=part).reshape(-1)
+    slot, _, C = slots(cfg, gate_idx)
+
+    # the pair (t*k + j) in each slot, T*k where empty; the rank's block
+    pair_for_slot = torch.full((E * C + 1,), T * k, dtype=torch.int64,
+                               device=xl.device)
+    pair_for_slot[slot] = torch.arange(T * k, device=xl.device)
+    e0, e1 = 0, E
+    if by_model and wi_pl.dim == 0:
+        e0, e1 = chunk_of(mesh, [mj], E)
+    c0, c1 = chunk_of(mesh, c_dims, C)
+    block = pair_for_slot[:E * C].view(E, C)[e0:e1, c0:c1].reshape(-1)
+    tok, jdx = block // k, block % k
+
+    xw = whole_local(x, partial=part).reshape(T, d)
+    eb = torch.cat([xw, xw.new_zeros(1, d)])[tok].view(e1 - e0, c1 - c0, d)
+    keep = [mj] if by_model else []
+    eo = _experts(eb, *(whole_local(w, keep=keep, partial=c_part)
+                        for w in (module.wi, module.wg, module.wo)))
+
+    gpad = torch.cat([gate_vals, gate_vals.new_zeros(1)])
+    vals = (eo.reshape(-1, d) * gpad[block][:, None].to(eo.dtype)
+            ).to(x.dtype)
+    out = torch.zeros((T + 1, d), dtype=x.dtype, device=xl.device)
+    for j in range(k):
+        # a token's j-th pair, if in the block; every other row to row T
+        out.index_add_(0, torch.where(jdx == j, tok, T), vals)
+    out = DTensor.from_local(
+        out[:T].view(B, S, d), mesh,
+        [Partial() if j in part else Replicate() for j in range(n)],
+        run_check=False)
+    out = out.redistribute(mesh, [Partial() if j == mj and by_model
+                                  else tok_pl[j] for j in range(n)])
+
+    # Switch-style load-balance loss over every token of the call.
+    me = whole_local(DTensor.from_local(
+        probs.sum(0) / T, mesh,
+        [Partial() if j in tok_dims else Replicate() for j in range(n)],
+        run_check=False))
+    ce = F.one_hot(gate_idx[:, 0], E).to(torch.float32).mean(0)
+    aux = m.router_aux_coef * E * torch.sum(me * ce)
+
+    if m.n_shared_experts:
+        out = out + module.shared(x)
+    return out, DTensor.from_local(aux, mesh, [Replicate()] * n,
+                                   run_check=False)

@@ -60,11 +60,15 @@ global batch 16, at edge 4, and falcon-mamba-7b at its published widths
 and its production ``train_4k`` shape, cut to 2 layers, at edge 16
 (``TRAIN_PUBLISHED``), each also at one rank.  Per device their dense
 products (``mm``) are at most 1.02x the one-rank count over the ranks.
-Before, the LM head's weight gradient ran on the whole vocabulary on
-every model rank (its gradient came back split on the sequence, or
-whole, and falcon-mamba-7b's residual stream reached the head as a
-Partial sum): 1.635x at edge 4 for llama3.2-1b and 3.54x at edge 16 for
-falcon-mamba-7b."""
+So are deepseek-moe-16b's, at its published widths cut to 2 layers (one
+dense, one MoE) over 1,024 tokens at global batch 32, at edge 4, and its
+expert products and attention (``bmm``): each rank routes its own
+tokens and runs its own experts on its own capacity slots
+(``MOE_PUBLISHED``).  Before, the LM head's weight gradient ran on the
+whole vocabulary on every model rank (its gradient came back split on
+the sequence, or whole, and falcon-mamba-7b's residual stream reached
+the head as a Partial sum): 1.635x at edge 4 for llama3.2-1b and 3.54x
+at edge 16 for falcon-mamba-7b."""
 import json
 import os
 import pathlib
@@ -103,6 +107,13 @@ TRAIN_PUBLISHED = {
                               global_batch=16)),
     "falcon-mamba-7b": ("16", dict(published=True, n_layers=2)),
 }
+# the MoE train step's cut at published widths: 2 layers (one dense, one
+# MoE) over 1,024 tokens at global batch 32, so that each of the 8
+# microbatches (TRAIN_ACC) gives every data rank at edge 4 one whole
+# sequence: C = 480 slots of the 4,096 tokens, 120 a data rank, 16 of the
+# 64 experts a model rank
+MOE_PUBLISHED = ("deepseek-moe-16b", "4", dict(
+    published=True, n_layers=2, seq_len=1024, global_batch=32))
 CONVS = {"aten.convolution", "aten._convolution", "aten.convolution_backward",
          "aten.cudnn_convolution", "aten.convolution_overrideable",
          "aten._slow_conv2d_forward"}
@@ -145,6 +156,11 @@ def runs(tmp_path_factory):
             jobs[f"{sub}:{arch}"] = (sc, [
                 sys.executable, worker, arch, "train_4k", "single",
                 json.dumps(cut), str(out / sub)])
+    arch, scale, cut = MOE_PUBLISHED
+    for sc, sub in ((scale, "mpub"), ("1", "mpub1")):
+        jobs[f"{sub}:{arch}"] = (sc, [
+            sys.executable, worker, arch, "train_4k", "single",
+            json.dumps(cut), str(out / sub)])
     procs = {}
     for name, (scale, cmd) in jobs.items():
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -156,7 +172,7 @@ def runs(tmp_path_factory):
     logs = {}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
-        if name.startswith(("cut", "pre", "tpub")):  # each reports its own
+        if name.startswith(("cut", "pre", "tpub", "mpub")):  # each reports
             logs[name] = (p.returncode, stderr)
             continue
         assert p.returncode == 0, f"{name}:\n{stderr[-3000:]}"
@@ -346,3 +362,26 @@ def test_train_weight_gradients_run_on_each_ranks_share(runs, arch):
                   ["aten.mm"]["flops"])
     ranks = int(TRAIN_PUBLISHED[arch][0]) ** 2
     assert mm[0] <= 1.02 * mm[1] / ranks, ranks * mm[0] / mm[1]
+
+
+@pytest.mark.parametrize("op", ["aten.mm", "aten.bmm"])
+def test_moe_train_runs_each_ranks_own_experts_and_slots(runs, op):
+    """At edge 4 a rank routes its own tokens, runs the shared experts on
+    them and its own 16 experts on its data rank's 120 of the 480
+    capacity slots: its dense products (``mm``: the router, the shared
+    and the dense layers, the head) and its batched ones (``bmm``: the
+    expert products and the attention) are each at most 1.02x the
+    one-rank count over the 16 ranks (read 1.0015 and 1.0000).  On
+    gathered tokens every rank ran the shared experts and the router on
+    all 4,096 tokens and its experts on all 480 slots: 1.185x and
+    3.547x."""
+    out, logs = runs
+    arch = MOE_PUBLISHED[0]
+    flops = []
+    for sub in ("mpub", "mpub1"):
+        rc, stderr = logs[f"{sub}:{arch}"]
+        assert rc == 0, stderr[-3000:]
+        stem = f"{arch}__train_4k__single.ops.json"
+        flops.append(json.loads((out / sub / stem).read_text())[op]["flops"])
+    ranks = int(MOE_PUBLISHED[1]) ** 2
+    assert 0 < flops[0] <= 1.02 * flops[1] / ranks, ranks * flops[0] / flops[1]

@@ -10,7 +10,11 @@ JAX blocked, both from one starting state (the reference's
 Train cases take 2 steps of llama3.2-1b SMOKE at (2, 2) tensor parallel
 and sequence parallel, at (1, 4) where ``n_kv_heads`` 2 does not divide
 the model axis (the GQA pinning), at (2, 2) with ``fsdp``, and of
-deepseek-moe-16b and falcon-mamba-7b SMOKE at (2, 2); then the backward
+deepseek-moe-16b and falcon-mamba-7b SMOKE at (2, 2), deepseek-moe-16b
+also with capacity for half its pairs (``moe_drop_2x2``: the second data
+rank's pairs dropped because of the first's routing) and with 6
+experts at (1, 4), whose hidden size the model axis splits
+(``moe_ff_1x4``); then the backward
 where heads split unevenly: llama3.2-1b SMOKE, qwen2-0.5b SMOKE (its
 q/k/v biases) and a llama cut with 6 q heads (``cut``:
 ``ModelConfig.with_`` fields) in sequence parallel at (1, 4), the same
@@ -37,23 +41,28 @@ reports the spread, and the test prints each leaf it widened.
 Serving cases run ``build_prefill_step`` on a zero cache and then four
 ``build_decode_step`` steps over that cache, for llama3.2-1b and
 whisper-medium SMOKE at (2, 2), in float32 (logits and cache leaves
-within 2e-5 x max) and bfloat16 (5e-2 x max), for falcon-mamba-7b and
-zamba2-7b SMOKE at (2, 2) in float32, and in float32 at (1, 4):
-zamba2-7b SMOKE (1 SSM head a rank; its conv's leaves split 36 a rank
-against 32 x-channels), and where the 2 kv heads do not divide the model
-axis and each rank runs its own q heads, llama3.2-1b SMOKE (4 q heads, 1
-a rank) and the 6-head cut (2, 2, 2 and 0 a rank).  The port's worker records the prefill's
-layouts: in every serving case the output of each row-split product
-(the attention's and the MLP's ``wo``, a Mamba mixer's ``out_proj``)
-reaches ``summed`` as a Partial sum, in every layer (the sum that lets
-the next layer's products take the rank's own columns), and at (1,
-4) every q reaching the chunked attention is split on its heads (the
-6-head cut's q arrives replicated, 6 heads in whole columns of ``wq``
-not splitting 4 ways; SMOKE's layer 1 took a Partial q before).  In the
+within 2e-5 x max) and bfloat16 (5e-2 x max), for falcon-mamba-7b,
+zamba2-7b and deepseek-moe-16b SMOKE at (2, 2) in float32, and in
+float32 at (1, 4): zamba2-7b SMOKE (1 SSM head a rank; its conv's leaves
+split 36 a rank against 32 x-channels), and where the 2 kv heads do not
+divide the model axis and each rank runs its own q heads, llama3.2-1b
+SMOKE (4 q heads, 1 a rank) and the 6-head cut (2, 2, 2 and 0 a rank).
+The port's worker records the prefill's layouts: in every serving case
+the output of each row-split product (the attention's and the MLP's
+``wo``, a Mamba mixer's ``out_proj``) reaches ``summed`` as a Partial
+sum, in every layer (the sum that lets the next layer's products take
+the rank's own columns), and at (1, 4) every q reaching the chunked
+attention is split on its heads (the 6-head cut's q arrives replicated,
+6 heads in whole columns of ``wq`` not splitting 4 ways; SMOKE's layer 1
+took a Partial q before).  In the
 Mamba cases (``SSM_CASES``) the worker records whether each mixer's
 ``in_proj`` product gave its x split on d_inner over the model axis: so
 it must be in every layer, in training and in serving, each rank running
-its own channels (Mamba-1) or heads (Mamba-2).
+its own channels (Mamba-1) or heads (Mamba-2).  In the MoE cases
+(``MOE_CASES``) the worker records each rank's expert block per MoE
+layer call: the experts of its model rank (E / 2 at (2, 2); all 6, on
+its own hidden columns, in ``moe_ff_1x4``) on its data rank's share of
+the capacity slots, in every layer, in training and in serving.
 
 Two layouts that torch 2.11's DTensor rejects (2.13 runs both): in the
 train cases ``EMBED_CASES`` the gradient that reaches the embedding's
@@ -79,6 +88,7 @@ from repro.launch.steps import build_train_step as R_build
 from repro.launch.steps import init_train_state as R_init
 from repro.models import registry as R_reg
 from repro.models.config import ShapeConfig as R_Shape
+from torch_shard_worker import with_cut
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOSS_TOL, LEAF_TOL = 2e-5, 1e-4
@@ -109,6 +119,14 @@ TRAIN = [
     # and C whole, the gated norm's mean summed over the model axis, the
     # conv's leaves (72 a rank against 64 x-channels) gathered
     dict(name="zamba2_2x2", arch="zamba2-7b", mesh=(2, 2)),
+    # capacity for half the pairs: the second data rank's pairs are
+    # dropped because of the first's routing, as on one device
+    dict(name="moe_drop_2x2", arch="deepseek-moe-16b", mesh=(2, 2),
+         cut=dict(moe=dict(capacity_factor=0.5))),
+    # 6 experts that the model axis does not divide: it splits their
+    # hidden size instead, each rank all experts on its own 16 columns
+    dict(name="moe_ff_1x4", arch="deepseek-moe-16b", mesh=(1, 4),
+         cut=dict(moe=dict(n_experts=6))),
 ]
 SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
          for short, arch in (("llama", "llama3.2-1b"),
@@ -129,6 +147,9 @@ SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
     # x-channels: the conv's leaves and state do not line up with the heads
     dict(name="zamba2_float32_1x4", arch="zamba2-7b", dtype="float32",
          mesh=(1, 4)),
+    # the MoE layers' prefill and decode, each rank on its own experts
+    dict(name="moe_float32", arch="deepseek-moe-16b", dtype="float32",
+         mesh=(2, 2)),
 ]
 # the cases whose Mamba mixers run each rank's own channels
 SSM_CASES = ("ssm_2x2", "ssm_2x2_1k", "zamba2_2x2", "falcon_float32",
@@ -138,6 +159,8 @@ SSM_CASES = ("ssm_2x2", "ssm_2x2_1k", "zamba2_2x2", "falcon_float32",
 # decode splits the kv heads over it
 EMBED_CASES = ("llama_tp_2x2", "ssm_2x2", "zamba2_2x2")
 SPLIT_KV_CASES = ("llama_float32", "zamba2_float32", "whisper_float32")
+# the MoE cases: each rank's expert products on its own (experts, slots)
+MOE_CASES = ("moe_2x2", "moe_drop_2x2", "moe_ff_1x4", "moe_float32")
 
 
 def free_port() -> int:
@@ -153,8 +176,8 @@ def numpy_tree(tree):
 
 def start_state(arch, seq, batch, cut=None):
     """The reference's one-device initial train state, as numpy."""
-    cfg = RC.get_config(arch, smoke=True).with_(dtype="float32",
-                                                **(cut or {}))
+    cfg = with_cut(RC.get_config(arch, smoke=True).with_(dtype="float32"),
+                   cut)
     built = R_build(cfg, R_Shape("s", "train", seq, batch), R_mesh(1, 1),
                     n_acc=1)
     st = R_init(cfg, built)
@@ -183,7 +206,7 @@ def train_cases():
 def serve_cases():
     rng = np.random.default_rng(7)
     for c in SERVE:
-        cfg = RC.get_config(c["arch"], smoke=True).with_(**c.get("cut", {}))
+        cfg = with_cut(RC.get_config(c["arch"], smoke=True), c.get("cut"))
         params, _ = R_reg.init_model(cfg.with_(dtype="float32"),
                                      jax.random.key(3))
         if cfg.family == "encdec":
@@ -216,7 +239,9 @@ def run_both(cases, tmp_path):
         text=True) for side in ("ref", "port")}
     out = {}
     for side, p in procs.items():
-        log, _ = p.communicate(timeout=600)
+        # the reference's side runs every case (its one-device steps too):
+        # about 140 s alone, and 490 s beside the suite's other workers
+        log, _ = p.communicate(timeout=900)
         assert p.returncode == 0, f"{side} worker failed:\n{log[-4000:]}"
         with open(tmp_path / f"{side}.pkl", "rb") as f:
             out[side] = pickle.load(f)
@@ -325,7 +350,7 @@ def row_split_products(case) -> int:
     transformer block (an encoder block for whisper: its prefill runs
     only the encoder), one a Mamba block, two at each of the hybrid's
     shared-block call sites."""
-    cfg = RC.get_config(case["arch"], smoke=True).with_(**case.get("cut", {}))
+    cfg = with_cut(RC.get_config(case["arch"], smoke=True), case.get("cut"))
     if cfg.family == "encdec":
         return 2 * cfg.n_enc_layers
     if cfg.family == "ssm":
@@ -405,3 +430,49 @@ def test_split_kv_decode_runs_on_local_shards(results, name):
     local = (True, cfg.n_kv_heads // case["mesh"][1])
     assert port["decode_kv_local"] == [local] * (4 * layers), \
         port["decode_kv_local"]
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_moe_experts_run_each_ranks_own_block(results, name):
+    """In every MoE layer call, in training (each microbatch, and its
+    recompute) and in serving (the prefill and each decode step), each
+    rank's expert products run on its own block: the experts of its
+    model rank (E / 2 at (2, 2); all 6 at (1, 4), which splits their
+    hidden size) on its data rank's share of the capacity C, ceil(C /
+    data) slots a data rank and the rest on the last (a mesh (data,
+    model), rank = model x data + model rank)."""
+    from repro_torch.models.moe import capacity
+
+    _, port = pair(results, name)
+    case = next(c for c in TRAIN + SERVE if c["name"] == name)
+    cfg = with_cut(RC.get_config(case["arch"], smoke=True), case.get("cut"))
+    E, d = cfg.moe.n_experts, cfg.d_model
+    data, model = case["mesh"]
+    experts = E // model if E % model == 0 else E
+    layers = cfg.n_layers - cfg.moe.first_dense_layers  # the MoE layers
+    if case in SERVE:  # the prefill, then 4 decode steps of one token
+        tokens = [BATCH * SEQ] * layers + [BATCH] * (4 * layers)
+    else:  # per microbatch of 2 sequences, forward and recompute alike
+        tokens = None
+    for rank, blocks in enumerate(port["expert_blocks"]):
+        if tokens is None:
+            assert len(blocks) % layers == 0 and len(blocks) >= 4 * layers, \
+                blocks
+        want = []
+        for T in tokens or [2 * case.get("seq", SEQ)] * len(blocks):
+            C = capacity(cfg, T)
+            step = -(-C // data)
+            c0 = min(rank // model * step, C)
+            want.append((experts, min(c0 + step, C) - c0, d))
+        assert blocks == want, (rank, blocks, want)
+
+
+def test_moe_capacity_drops_the_other_data_ranks_pairs(results):
+    """``moe_drop_2x2``'s capacity (factor 0.5) holds half the pairs:
+    every call drops pairs of the second data rank's tokens, which the
+    first's fill the buffers before (the token-major count of the whole
+    call), and the port still matches the reference
+    (``test_train_steps_match_reference``)."""
+    _, port = pair(results, "moe_drop_2x2")
+    dropped = port["moe_dropped"]
+    assert dropped and all(second > 0 for _, second in dropped), dropped

@@ -6,13 +6,14 @@ and write what they computed.
 
 ``IN`` is a pickle ``{"cases": [...], ...}`` made by the test module: each
 case names an arch (its SMOKE config, changed by the ``ModelConfig.with_``
-fields of its ``cut``), a mesh and what to run, and carries its starting state,
-weights and inputs as numpy arrays in the reference's layout.  ``ref`` runs
-the reference (``repro``) on 4 forced host devices; ``port`` runs the port
-(``repro_torch``) on 4 gloo ranks joined on ``tcp://127.0.0.1:PORT`` with
-JAX blocked, and rank 0 writes.  ``OUT`` gets a pickle {case name: result}
-of numpy arrays, each state leaf's sharding spec (as a tuple) and the
-losses; a case that raises records its error instead.
+fields of its ``cut``: ``with_cut``), a mesh and what to run, and carries
+its starting state, weights and inputs as numpy arrays in the reference's
+layout.  ``ref`` runs the reference (``repro``) on 4 forced host devices;
+``port`` runs the port (``repro_torch``) on 4 gloo ranks joined on
+``tcp://127.0.0.1:PORT`` with JAX blocked, and rank 0 writes.  ``OUT``
+gets a pickle {case name: result} of numpy arrays, each state leaf's
+sharding spec (as a tuple) and the losses; a case that raises records
+its error instead.
 
 Case kinds: ``train`` (two steps of ``build_train_step``), ``serve``
 (``build_prefill_step`` on a zero cache, then ``build_decode_step`` steps
@@ -28,8 +29,11 @@ embedding's row read held a Partial placement (``embed_grad_partial``),
 and per decode attention
 call on the kv heads' split whether it ran on local shards and how many kv
 heads a rank held (``decode_kv_local``; torch 2.11 rejects the DTensor
-einsum there).
+einsum there), and per MoE layer call, in call order, each rank's local
+expert block (E, C, d) (``expert_blocks``, one list a rank) and the pairs
+the call's capacity dropped in each half of its tokens (``moe_dropped``).
 """
+import dataclasses
 import contextlib
 import os
 import pickle
@@ -41,6 +45,16 @@ import types
 import numpy as np
 
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
+
+
+def with_cut(cfg, cut):
+    """``cfg.with_(**cut)``; a ``moe`` entry of ``cut`` is a dict of
+    ``MoEConfig`` fields that change the config's own (either package's
+    config: the cut crosses between them as plain values)."""
+    cut = dict(cut or {})
+    if "moe" in cut:
+        cut["moe"] = dataclasses.replace(cfg.moe, **cut["moe"])
+    return cfg.with_(**cut)
 
 
 def ref_state_tree(d):
@@ -64,8 +78,8 @@ def run_ref(cases, tmp):
     from repro.runtime.trainer import Trainer, TrainerConfig
 
     def cfg_of(case):
-        return get_config(case["arch"], smoke=True).with_(
-            dtype=case["dtype"], **case.get("cut", {}))
+        return with_cut(get_config(case["arch"], smoke=True).with_(
+            dtype=case["dtype"]), case.get("cut"))
 
     def state_of(d, shardings):
         st = TrainState(np.asarray(d["step"], np.int32), d["params"], d["m"],
@@ -190,8 +204,8 @@ def port_rank(rank, port, cases, tmp, out_path):
                             world_size=4, rank=rank)
 
     def cfg_of(case):
-        return get_config(case["arch"], smoke=True).with_(
-            dtype=case["dtype"], **case.get("cut", {}))
+        return with_cut(get_config(case["arch"], smoke=True).with_(
+            dtype=case["dtype"]), case.get("cut"))
 
     def full(t):
         return t.full_tensor() if isinstance(t, DTensor) else t
@@ -222,10 +236,12 @@ def port_rank(rank, port, cases, tmp, out_path):
     out = {}
     by_channel = _record_mixers()
     layouts = _record_layouts()
+    moe_seen = _record_moe()
+    blocks = {}
     for case in cases:
         t0 = time.perf_counter()
         by_channel.clear()
-        for v in layouts.values():
+        for v in (*layouts.values(), *moe_seen.values()):
             v.clear()
         try:
             cfg = cfg_of(case)
@@ -304,19 +320,25 @@ def port_rank(rank, port, cases, tmp, out_path):
                 res["decode_logits"] = dl
                 res["decode_cache"] = host(cache)
             out[case["name"]] = dict(res, ssm_by_channel=list(by_channel),
+                                     moe_dropped=list(moe_seen["dropped"]),
                                      **{k: list(v) for k, v in
                                         layouts.items()},
                                      seconds=time.perf_counter() - t0)
         except Exception:  # recorded; the test reports it
             out[case["name"]] = {"error": f"rank {rank}: "
                                           + traceback.format_exc()}
+        blocks[case["name"]] = list(moe_seen["blocks"])
     every = [None] * 4
-    dist.all_gather_object(every, {k: "error" in v for k, v in out.items()})
+    dist.all_gather_object(every, ({k: "error" in v for k, v in out.items()},
+                                   blocks))
     if rank == 0:
-        for r, errs in enumerate(every[1:], 1):
+        for r, (errs, _) in enumerate(every[1:], 1):
             for k, bad in errs.items():
                 if bad and "error" not in out[k]:
                     out[k] = {"error": f"rank {r} failed"}
+        for k, v in out.items():
+            if "error" not in v:
+                v["expert_blocks"] = [b[k] for _, b in every]
         with open(out_path, "wb") as f:
             pickle.dump(out, f)
     dist.destroy_process_group()
@@ -411,6 +433,33 @@ def _record_layouts() -> dict:
         return kv_heads(qh, k, v, **kw)
 
     common.grad_like, attention._decode_kv_heads = like_rec, kv_rec
+    return seen
+
+
+def _record_moe() -> dict:
+    """From now on record, per MoE layer call and in call order,
+    the shape of the rank's expert block (``moe._experts``' capacity
+    buffers, (E, C, d), as a tuple: ``blocks``) and the pairs the call's
+    capacity dropped among the first and the second half of its tokens
+    (``moe.slots``: ``dropped``).  Returns the dict of lists that receive
+    them."""
+    from repro_torch.models import moe
+
+    seen = {"blocks": [], "dropped": []}
+    experts, slots = moe._experts, moe.slots
+
+    def experts_rec(eb, *w):
+        seen["blocks"].append(tuple(eb.shape))
+        return experts(eb, *w)
+
+    def slots_rec(cfg, gate_idx):
+        out = slots(cfg, gate_idx)
+        drop = ~out[1].view(2, -1) if gate_idx.shape[0] % 2 == 0 else None
+        seen["dropped"].append(None if drop is None else
+                               [int(h.sum()) for h in drop])
+        return out
+
+    moe._experts, moe.slots = experts_rec, slots_rec
     return seen
 
 

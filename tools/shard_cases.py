@@ -23,7 +23,8 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-RECORDS = ("embed_grad_partial", "decode_kv_local", "ssm_by_channel")
+RECORDS = ("embed_grad_partial", "decode_kv_local", "ssm_by_channel",
+           "expert_blocks", "moe_dropped")
 
 
 def _tests():
