@@ -181,7 +181,11 @@ just before and read just after:
   attention on local shards), 7.256310e8; (h) the same way for
   deepseek-moe-16b x ``train_4k`` cut to 2 layers (one dense, one MoE:
   each rank routes its own tokens and runs its own experts on its own
-  capacity slots), 1.193249e13 FLOPs per device.
+  capacity slots), 1.193249e13 FLOPs per device; (i) the same way for
+  internvl2-2b x ``train_4k`` cut to 2 layers (sequence parallel: the LM
+  head over 92,553 columns, which the model axis does not divide, and the
+  loss run on each rank's own sequence rows), 1.001846e13 FLOPs per
+  device.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2916,6 +2920,15 @@ HYBRID_DRYRUN_FLOPS = "7.256310e+08"
 MOE_TRAIN_DRYRUN_CELL = ("deepseek-moe-16b", "train_4k")
 MOE_TRAIN_DRYRUN_LAYERS = 2
 MOE_TRAIN_DRYRUN_FLOPS = "1.193249e+13"
+# phase 15 (i): the VLM's sequence-parallel train step at published widths
+# and the production shape, 2 layers, on the single-pod mesh: its head
+# over 92,553 columns, which the model axis does not divide, runs on
+# each rank's own 256 of the 4,096 sequence rows, and the loss on them
+# (the image rows masked in place); its FLOPs per device, to the 7 digits
+# of the CPU count
+VLM_TRAIN_DRYRUN_CELL = ("internvl2-2b", "train_4k")
+VLM_TRAIN_DRYRUN_LAYERS = 2
+VLM_TRAIN_DRYRUN_FLOPS = "1.001846e+13"
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
 _CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
@@ -3408,6 +3421,10 @@ def main() -> int:
     moe_train_dryrun = start_dryruns(root, MOE_TRAIN_DRYRUN_CELL, "moe_train",
                                      meshes=("single",),
                                      n_layers=MOE_TRAIN_DRYRUN_LAYERS)
+    # (i)'s VLM train cells: the head and the loss on each rank's own rows
+    vlm_train_dryrun = start_dryruns(root, VLM_TRAIN_DRYRUN_CELL, "vlm_train",
+                                     meshes=("single",),
+                                     n_layers=VLM_TRAIN_DRYRUN_LAYERS)
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
@@ -3443,7 +3460,10 @@ def main() -> int:
              HYBRID_DRYRUN_LAYERS, HYBRID_DRYRUN_FLOPS),
             ("moe_train_dryrun", "(h)", moe_train_dryrun,
              MOE_TRAIN_DRYRUN_CELL, MOE_TRAIN_DRYRUN_LAYERS,
-             MOE_TRAIN_DRYRUN_FLOPS)):
+             MOE_TRAIN_DRYRUN_FLOPS),
+            ("vlm_train_dryrun", "(i)", vlm_train_dryrun,
+             VLM_TRAIN_DRYRUN_CELL, VLM_TRAIN_DRYRUN_LAYERS,
+             VLM_TRAIN_DRYRUN_FLOPS)):
         cost[key] = collect_dryruns(tag, label, run,
                                     timeout=TRAIN_DRYRUN_TIMEOUT_S)
         flops = cost[key]["single"]["flops"]

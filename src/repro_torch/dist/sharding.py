@@ -470,6 +470,72 @@ def grad_like(t):
     return _relaid(t, _same, bwd)
 
 
+def own_rows(x, w):
+    """The ``model`` mesh dimension over which ``x @ w`` runs on each
+    rank's own rows (``on_own_rows``), or None.  ``x`` is a 3-D DTensor
+    (batch, rows, d) with no Partial sum, split on its rows there or
+    replicated there with rows that the model axis divides; ``w`` is a
+    2-D DTensor whose columns no mesh dimension splits: the LM head over
+    a vocabulary that the model axis does not divide, which the rules
+    leave whole (internvl2-2b's 92,553 columns)."""
+    m = _model_axis(x)
+    if (m is None or m[1] == 1 or x.ndim != 3 or not isinstance(w, DTensor)
+            or w.ndim != 2):
+        return None
+    j, ways = m
+    if any(isinstance(p, Partial) for p in x.placements) or any(
+            isinstance(p, Shard) and p.dim == 1 for p in w.placements):
+        return None
+    on_rows = [isinstance(p, Shard) and p.dim == 1 for p in x.placements]
+    if on_rows[j] or (isinstance(x.placements[j], Replicate)
+                      and not any(on_rows) and x.shape[1] % ways == 0):
+        return j
+    return None
+
+
+def on_own_rows(fn, x, w, j: int):
+    """``fn(x, w)``, a product of ``x``'s rows with ``w`` (``own_rows``),
+    run on each rank's own rows: ``x`` split on its dimension 1 over mesh
+    dimension ``j`` (a replicated ``x`` sliced locally, with no
+    collective), ``w`` read whole (``whole_local``) and ``fn`` run on the
+    local tensors, its result laid out as ``x``.  ``x``'s gradient comes
+    back split as its rows; ``w``'s is each rank's ``x_localᵀ @
+    g_local``, a Partial sum over every mesh dimension that splits
+    ``x``, reduced into ``w``'s layout on the way back, as the other
+    weight gradients are.  For the LM head whose columns the model axis
+    does not split: DTensor's product (``common.matmul`` gathers ``x``'s
+    rows first) ran every row's logits, forward and both gradients, on
+    every model rank, where the reference's GSPMD runs them on each
+    rank's own sequence rows."""
+    x = split_locally(x, 1, j)
+    pl = tuple(x.placements)
+    split = tuple(k for k, p in enumerate(pl) if isinstance(p, Shard))
+    out = fn(x.to_local(grad_placements=pl), whole_local(w, partial=split))
+    shape = tuple(x.shape[:2]) + tuple(out.shape[2:])
+    return DTensor.from_local(out, x.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous(shape))
+
+
+def splits_rows(t) -> bool:
+    """Whether ``t`` is a 3-D DTensor (batch, rows, columns) split on its
+    rows over some mesh dimension, whole on its columns and holding no
+    Partial sum: the logits of ``on_own_rows``."""
+    if not isinstance(t, DTensor) or t.ndim != 3:
+        return False
+    pl = t.placements
+    return (any(isinstance(p, Shard) and p.dim == 1 for p in pl)
+            and not any(isinstance(p, Partial) or
+                        (isinstance(p, Shard) and p.dim == 2) for p in pl))
+
+
+def _contiguous(shape) -> tuple:
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
+
+
 def whole_local(t, keep=(), partial=()):
     """This rank's local tensor of DTensor ``t``, made whole (gathered, a
     Partial sum reduced) on every mesh dimension but those in ``keep``,
@@ -644,10 +710,7 @@ def on_local_shards(fn, ts, dims, sizes, out_dims, offsets=(), uneven=(),
             shape = list(o.shape)
             for n in set(names) & set(d):
                 shape[d[n] % o.ndim] = sizes[n]
-            stride = [1] * len(shape)
-            for i in range(len(shape) - 2, -1, -1):
-                stride[i] = stride[i + 1] * shape[i + 1]
-            shape, stride = torch.Size(shape), tuple(stride)
+            shape, stride = torch.Size(shape), _contiguous(shape)
         return DTensor.from_local(o, mesh, _placed(names, d),
                                   run_check=False, shape=shape, stride=stride)
 

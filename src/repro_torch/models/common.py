@@ -20,7 +20,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import (gathered, grad_like, grad_whole_dim, split_as_rows,
+from ..dist.sharding import (gathered, grad_like, grad_whole_dim,
+                              on_local_shards, split_as_rows, splits_rows,
                               whole_dim)
 
 
@@ -210,15 +211,31 @@ def sinusoidal_positions(max_len: int, d: int) -> torch.Tensor:
 # -- losses ------------------------------------------------------------------
 
 
+def _nll(logits, labels):
+    """Each position's NLL: logsumexp less the label logit."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(torch.float32)
+    return logz - torch.sum(logits * onehot, dim=-1)
+
+
 def softmax_cross_entropy(logits, labels, mask=None):
     """logits (..., V) any dtype -> fp32 mean NLL over masked positions.
 
     The label logit is taken by a one-hot contraction, as the reference
-    takes it."""
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(torch.float32)
-    nll = logz - torch.sum(logits * onehot, dim=-1)
+    takes it.  Logits split on their rows with the vocabulary whole (the
+    LM head on each rank's own rows, ``dist.sharding.on_own_rows``): the
+    NLL runs on each rank's local rows (``on_local_shards``), the labels
+    and the mask laid out as the logits, so that neither the logits nor
+    the (tokens, V) one-hot is gathered."""
+    if splits_rows(logits):
+        rows = {"batch": 0, "rows": 1}
+        nll = on_local_shards(_nll, [logits, labels], [rows, rows],
+                              dict(zip(rows, logits.shape[:2])), rows)
+        if isinstance(mask, DTensor):
+            mask = mask.redistribute(mask.device_mesh, nll.placements)
+    else:
+        nll = _nll(logits, labels)
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)

@@ -28,8 +28,10 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from ..dist.sharding import grad_like, local_write, summed
+from ..dist.sharding import (grad_like, local_write, on_own_rows, own_rows,
+                             splits_rows, summed, whole_dim)
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .common import (Norm, draw_weights, dtype_of, lookup, matmul,
@@ -208,6 +210,11 @@ class LM(nn.Module):
 
     def _head(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        j = own_rows(x, head)
+        if j is not None:
+            # a vocabulary that the model axis does not split: each rank's
+            # logits of its own rows (``on_own_rows``)
+            return on_own_rows(matmul, x, head, j)
         # the logits' gradient comes back split as they are, on the
         # vocabulary (``grad_like``)
         return grad_like(matmul(x, head))
@@ -347,16 +354,39 @@ def lm_forward(cfg: ModelConfig, model: LM, tokens, *, patch_embeds=None,
 def lm_loss(cfg: ModelConfig, model: LM, batch: dict, **kw):
     """Mean next-token cross entropy over ``batch`` (``tokens``,
     ``labels``, optional ``loss_mask`` and, for the VLM,
-    ``patch_embeds``, whose positions are dropped from the logits), plus
-    the MoE layers' aux loss.  ``kw`` goes to ``lm_forward``."""
+    ``patch_embeds``, whose positions are dropped from the logits, or
+    masked out where the logits are split on their rows), plus the MoE
+    layers' aux loss.  ``kw`` goes to ``lm_forward``."""
     pe = batch.get("patch_embeds")
     logits, aux = lm_forward(cfg, model, batch["tokens"], patch_embeds=pe,
                              **kw)
     n_img = 0 if pe is None else pe.shape[1]
-    if n_img:
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    if n_img and splits_rows(logits):
+        # logits on each rank's own rows (``LM._head``): slicing off the
+        # image rows would gather them, so the labels and the mask take
+        # the logits' rows instead, the image positions in front, masked
+        # out (``_in_front``)
+        if mask is None:
+            mask = torch.ones_like(labels, dtype=torch.float32)
+        labels, mask = _in_front(labels, n_img), _in_front(mask, n_img)
+    elif n_img:
         logits = logits[:, n_img:]
-    return softmax_cross_entropy(logits, batch["labels"],
-                                 batch.get("loss_mask")) + aux
+    return softmax_cross_entropy(logits, labels, mask) + aux
+
+
+def _in_front(t, n: int):
+    """(B, L) DTensor ``t`` with ``n`` zero columns in front: gathered on
+    its columns first (``whole_dim``: a few numbers a row, the labels or
+    the loss mask), padded on its local rows, its other placements
+    kept."""
+    t = whole_dim(t, 1)
+    local = t.to_local()
+    local = torch.cat([local.new_zeros((local.shape[0], n)), local], dim=1)
+    shape = (t.shape[0], n + t.shape[1])
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=(shape[1], 1))
 
 
 # -- serving ------------------------------------------------------------------

@@ -57,9 +57,12 @@ replicated q split on its heads).
 The train step computes each rank's own share of the weight gradients:
 llama3.2-1b at its published widths, cut to 2 layers over 1,024 tokens at
 global batch 16, at edge 4, and falcon-mamba-7b at its published widths
-and its production ``train_4k`` shape, cut to 2 layers, at edge 16
-(``TRAIN_PUBLISHED``), each also at one rank.  Per device their dense
-products (``mm``) are at most 1.02x the one-rank count over the ranks.
+and its production ``train_4k`` shape, cut to 2 layers, at edge 16, and
+internvl2-2b as llama3.2-1b (``TRAIN_PUBLISHED``), each also at one rank.
+Per device their dense products (``mm``) are at most 1.02x the one-rank
+count over the ranks: internvl2-2b's head over 92,553 columns, which the
+model axis does not divide, runs on each rank's own sequence rows (2.643x
+when it ran every row on every model rank).
 So are deepseek-moe-16b's, at its published widths cut to 2 layers (one
 dense, one MoE) over 1,024 tokens at global batch 32, at edge 4, and its
 expert products and attention (``bmm``): each rank routes its own
@@ -106,6 +109,10 @@ TRAIN_PUBLISHED = {
     "llama3.2-1b": ("4", dict(published=True, n_layers=2, seq_len=1024,
                               global_batch=16)),
     "falcon-mamba-7b": ("16", dict(published=True, n_layers=2)),
+    # 92,553 columns, divisible by neither 4 nor 2: the head stays whole
+    # and runs on each rank's own sequence rows
+    "internvl2-2b": ("4", dict(published=True, n_layers=2, seq_len=1024,
+                               global_batch=16)),
 }
 # the MoE train step's cut at published widths: 2 layers (one dense, one
 # MoE) over 1,024 tokens at global batch 32, so that each of the 8

@@ -22,7 +22,14 @@ cut tensor parallel at (1, 4) (the pinned q split on its own heads, 2,
 2, 2 and 0 a rank), and
 falcon-mamba-7b SMOKE at (2, 2) over 1,024 tokens (``seq``), where the
 scan runs in chunks, and zamba2-7b SMOKE at (2, 2), each rank on its own
-Mamba-2 heads.  Tolerances: the
+Mamba-2 heads; and internvl2-2b SMOKE in sequence parallel at (1, 4) with
+a vocabulary of 510, which the model axis does not divide, and 6 image
+rows of 32 (``internvl_seq_1x4``: its batches seeded numpy draws of the
+reference's ``batch_shapes``, image embeddings and a loss mask
+included), where the LM head stays whole and each rank computes the
+logits and the loss of its own 8 rows, the image rows inside rank 0's
+masked out (``HEAD_ROWS_CASES``: the worker records whether every head
+call's logits came out split on their rows).  Tolerances: the
 loss within 2e-5 x |ref|, every master, m and v leaf within 1e-4 x max
 |ref leaf| (the tolerance of ``test_torch_train_step.py``'s three
 one-device steps: each rank sums its own float32 partial products, in an
@@ -127,6 +134,11 @@ TRAIN = [
     # hidden size instead, each rank all experts on its own 16 columns
     dict(name="moe_ff_1x4", arch="deepseek-moe-16b", mesh=(1, 4),
          cut=dict(moe=dict(n_experts=6))),
+    # a vocabulary the model axis does not divide (510 over 4): the head
+    # stays whole and runs on each rank's own 8 of the 32 rows, the 6
+    # image rows inside rank 0's
+    dict(name="internvl_seq_1x4", arch="internvl2-2b", mesh=(1, 4),
+         mode="seq", cut=dict(vocab=510, n_img_tokens=6)),
 ]
 SERVE = [dict(name=f"{short}_{dtype}", arch=arch, dtype=dtype, mesh=(2, 2))
          for short, arch in (("llama", "llama3.2-1b"),
@@ -161,6 +173,9 @@ EMBED_CASES = ("llama_tp_2x2", "ssm_2x2", "zamba2_2x2")
 SPLIT_KV_CASES = ("llama_float32", "zamba2_float32", "whisper_float32")
 # the MoE cases: each rank's expert products on its own (experts, slots)
 MOE_CASES = ("moe_2x2", "moe_drop_2x2", "moe_ff_1x4", "moe_float32")
+# the head over a vocabulary the model axis does not divide: each rank's
+# logits of its own rows
+HEAD_ROWS_CASES = ("internvl_seq_1x4",)
 
 
 def free_port() -> int:
@@ -185,10 +200,29 @@ def start_state(arch, seq, batch, cut=None):
             "m": numpy_tree(st.m), "v": numpy_tree(st.v)}
 
 
-def train_batches(arch, seq, batch, n):
-    cfg = RC.get_config(arch, smoke=True)
-    data = R_data.SyntheticLM(cfg.vocab, seq, batch, seed=0)
-    return [data.next_batch() for _ in range(n)]
+def train_batches(arch, seq, batch, n, cut=None):
+    """``n`` batches of the reference's data pipeline; for the VLM, whose
+    batches it cannot make (no ``patch_embeds``), seeded numpy draws of
+    the reference's ``batch_shapes`` (a loss mask of about 90 % ones)."""
+    cfg = with_cut(RC.get_config(arch, smoke=True), cut)
+    if cfg.family != "vlm":
+        data = R_data.SyntheticLM(cfg.vocab, seq, batch, seed=0)
+        return [data.next_batch() for _ in range(n)]
+    rng = np.random.default_rng(5)
+    shapes = R_reg.batch_shapes(cfg, R_Shape("s", "train", seq, batch),
+                                masked=True)
+    out = []
+    for _ in range(n):
+        b = {}
+        for k, (s, _) in shapes.items():
+            if k == "patch_embeds":
+                b[k] = rng.normal(0, 0.02, s).astype(np.float32)
+            elif k == "loss_mask":
+                b[k] = (rng.random(s) < 0.9).astype(np.float32)
+            else:
+                b[k] = rng.integers(0, cfg.vocab, s).astype(np.int32)
+        out.append(b)
+    return out
 
 
 def train_cases():
@@ -200,7 +234,8 @@ def train_cases():
         seq = c.get("seq", SEQ)
         yield dict(c, kind="train", dtype="float32", seq=seq, batch=BATCH,
                    n_acc=2, state=states[key],
-                   batches=train_batches(c["arch"], seq, BATCH, 2))
+                   batches=train_batches(c["arch"], seq, BATCH, 2,
+                                         c.get("cut")))
 
 
 def serve_cases():
@@ -430,6 +465,17 @@ def test_split_kv_decode_runs_on_local_shards(results, name):
     local = (True, cfg.n_kv_heads // case["mesh"][1])
     assert port["decode_kv_local"] == [local] * (4 * layers), \
         port["decode_kv_local"]
+
+
+@pytest.mark.parametrize("name", HEAD_ROWS_CASES)
+def test_head_runs_on_each_ranks_own_rows(results, name):
+    """The model axis does not divide the vocabulary, so the head's
+    columns stay whole: every head call (each microbatch of both steps)
+    gives logits split on their rows (Shard(1)) over the model axis, each
+    rank's logits of its own rows."""
+    _, port = pair(results, name)
+    flags = port["head_rows"]
+    assert len(flags) == 4 and all(flags), flags
 
 
 @pytest.mark.parametrize("name", MOE_CASES)

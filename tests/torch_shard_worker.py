@@ -26,10 +26,12 @@ the port records, per Mamba mixer call and in call order, whether the
 ``in_proj`` product's x output was split on d_inner over the model axis
 (``ssm_by_channel``), in call order whether the gradient handed to the
 embedding's row read held a Partial placement (``embed_grad_partial``),
-and per decode attention
+per decode attention
 call on the kv heads' split whether it ran on local shards and how many kv
 heads a rank held (``decode_kv_local``; torch 2.11 rejects the DTensor
-einsum there), and per MoE layer call, in call order, each rank's local
+einsum there), per LM head call on more than one row whether its logits
+came out split on their rows over the model axis (``head_rows``), and
+per MoE layer call, in call order, each rank's local
 expert block (E, C, d) (``expert_blocks``, one list a rank) and the pairs
 the call's capacity dropped in each half of its tokens (``moe_dropped``).
 """
@@ -408,17 +410,31 @@ def _record_mixers() -> list:
 def _record_layouts() -> dict:
     """From now on record, in call order: whether the gradient handed to
     the embedding's row read (``common.lookup``'s rows, after ``grad_like``)
-    held a Partial placement (``embed_grad_partial``), and for each decode
+    held a Partial placement (``embed_grad_partial``), for each decode
     attention call on the kv heads (``attention._decode_kv_heads``)
     whether its operands were local shards and the kv heads of the
-    rank's cache shard (``decode_kv_local``).  Returns the dict of lists
-    that receive them."""
-    from torch.distributed.tensor import DTensor, Partial
+    rank's cache shard (``decode_kv_local``), and for each LM head call
+    on more than one row (``LM._head``) whether its logits came out split
+    on their rows (Shard(1)) over the model axis (``head_rows``).
+    Returns the dict of lists that receive them."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
 
-    from repro_torch.models import attention, common
+    from repro_torch.models import attention, common, transformer
 
-    seen = {"embed_grad_partial": [], "decode_kv_local": []}
+    seen = {"embed_grad_partial": [], "decode_kv_local": [],
+            "head_rows": []}
     like, kv_heads = common.grad_like, attention._decode_kv_heads
+    head = transformer.LM._head
+
+    def head_rec(self, x):
+        out = head(self, x)
+        if x.shape[1] > 1:
+            names = getattr(getattr(out, "device_mesh", None),
+                            "mesh_dim_names", None) or ()
+            pl = (out.placements[names.index("model")]
+                  if isinstance(out, DTensor) and "model" in names else None)
+            seen["head_rows"].append(isinstance(pl, Shard) and pl.dim == 1)
+        return out
 
     def like_rec(t):
         if isinstance(t, DTensor) and t.requires_grad:
@@ -433,6 +449,7 @@ def _record_layouts() -> dict:
         return kv_heads(qh, k, v, **kw)
 
     common.grad_like, attention._decode_kv_heads = like_rec, kv_rec
+    transformer.LM._head = head_rec
     return seen
 
 
