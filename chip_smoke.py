@@ -185,7 +185,10 @@ just before and read just after:
   internvl2-2b x ``train_4k`` cut to 2 layers (sequence parallel: the LM
   head over 92,553 columns, which the model axis does not divide, and the
   loss run on each rank's own sequence rows), 1.001846e13 FLOPs per
-  device.
+  device; (j) the same way for qwen2-0.5b x ``train_4k`` cut to 2 layers
+  (sequence parallel: its q, whose 14 heads the model axis does not
+  split into whole kv groups, reaches the attention replicated and each
+  rank runs its own q head, 1 of 14), 5.007261e12 FLOPs per device.
 Any failure raises and exits nonzero.  Without a CUDA device it exits
 nonzero before printing any result.
 
@@ -2929,6 +2932,15 @@ MOE_TRAIN_DRYRUN_FLOPS = "1.193249e+13"
 VLM_TRAIN_DRYRUN_CELL = ("internvl2-2b", "train_4k")
 VLM_TRAIN_DRYRUN_LAYERS = 2
 VLM_TRAIN_DRYRUN_FLOPS = "1.001846e+13"
+# phase 15 (j): qwen2-0.5b's sequence-parallel train step at published
+# widths and the production shape, 2 layers, on the single-pod mesh: its
+# q reaches the attention replicated on the model axis (14 heads over
+# 16 ways) and each rank runs its own q head, the gradient of the slice a
+# Partial share; its FLOPs per device, to the 7 digits of the CPU count
+# (1.483415e13 with q whole on every rank)
+QWEN_TRAIN_DRYRUN_CELL = ("qwen2-0.5b", "train_4k")
+QWEN_TRAIN_DRYRUN_LAYERS = 2
+QWEN_TRAIN_DRYRUN_FLOPS = "5.007261e+12"
 FP32_FLOPS_S = 2 * LANE_OPS_S  # one FMA per FP32 lane per cycle: 6.69e13
 COST_SLOTS, COST_MAX_LEN = 8, 512  # phase 10's engine
 _CHILDREN: list = []  # the dry runs' subprocesses, stopped at exit
@@ -3425,6 +3437,10 @@ def main() -> int:
     vlm_train_dryrun = start_dryruns(root, VLM_TRAIN_DRYRUN_CELL, "vlm_train",
                                      meshes=("single",),
                                      n_layers=VLM_TRAIN_DRYRUN_LAYERS)
+    # (j)'s qwen2-0.5b train cells: a replicated q on each rank's own heads
+    qwen_train_dryrun = start_dryruns(root, QWEN_TRAIN_DRYRUN_CELL,
+                                      "qwen_train", meshes=("single",),
+                                      n_layers=QWEN_TRAIN_DRYRUN_LAYERS)
     cost = {"dryrun": dryrun_cells(tag, root)}
     cost["decode_step"] = cost_model_phase(
         tag, serving["decode_step_ms_p50"])
@@ -3463,7 +3479,10 @@ def main() -> int:
              MOE_TRAIN_DRYRUN_FLOPS),
             ("vlm_train_dryrun", "(i)", vlm_train_dryrun,
              VLM_TRAIN_DRYRUN_CELL, VLM_TRAIN_DRYRUN_LAYERS,
-             VLM_TRAIN_DRYRUN_FLOPS)):
+             VLM_TRAIN_DRYRUN_FLOPS),
+            ("qwen_train_dryrun", "(j)", qwen_train_dryrun,
+             QWEN_TRAIN_DRYRUN_CELL, QWEN_TRAIN_DRYRUN_LAYERS,
+             QWEN_TRAIN_DRYRUN_FLOPS)):
         cost[key] = collect_dryruns(tag, label, run,
                                     timeout=TRAIN_DRYRUN_TIMEOUT_S)
         flops = cost[key]["single"]["flops"]

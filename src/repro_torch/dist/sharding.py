@@ -776,17 +776,16 @@ def split_as_rows(t, w):
     return t
 
 
-def split_q_heads(t, dim: int, groups: int, *, replicated: bool = True):
+def split_q_heads(t, dim: int, groups: int):
     """(``t``, True) with its query-head dimension ``dim`` split over the
     ``model`` mesh axis where that axis cannot split whole groups of the
     ``groups`` kv heads, as the reference shards q on heads and replicates
     k/v (GSPMD pads an uneven head count; here DTensor's chunk rule gives
     a rank ceil(heads / model) heads and the last ranks fewer or none).
-    One already split there keeps its split; with ``replicated`` a
-    replicated ``t`` is sliced locally, with no collective.  (``t``,
-    False) otherwise: a plain tensor, a model axis of 1 or one that
-    divides ``groups``, or ``t`` laid out otherwise there (a Partial sum,
-    another split dimension)."""
+    One already split there keeps its split; a replicated ``t`` is sliced
+    locally (``own_heads``).  (``t``, False) otherwise: a plain tensor, a
+    model axis of 1 or one that divides ``groups``, or ``t`` laid out
+    otherwise there (a Partial sum, another split dimension)."""
     j = _model_dim(t, groups)
     if j is None:
         return t, False
@@ -794,9 +793,27 @@ def split_q_heads(t, dim: int, groups: int, *, replicated: bool = True):
     p = t.placements[j]
     if isinstance(p, Shard) and p.dim == dim:
         return t, True
-    if not (replicated and isinstance(p, Replicate)):
+    if not isinstance(p, Replicate):
         return t, False
-    return split_locally(t, dim, j), True
+    return own_heads(t, dim, j), True
+
+
+def own_heads(t, dim: int, j: int):
+    """Replicated DTensor ``t`` split on dimension ``dim`` over mesh
+    dimension ``j`` by DTensor's chunk rule (``chunk_of``), a local slice
+    with no collective, whose gradient goes back to ``t`` as a Partial sum
+    over ``j``: each rank's share, zero outside its own slice (q's heads
+    in a train step, each rank's attention on its own heads).  DTensor's
+    redistribute would gather the slices' gradients instead."""
+    mesh = t.device_mesh
+    start, stop = chunk_of(mesh, (j,), t.shape[dim])
+    local = whole_local(t, keep=[i for i in range(mesh.ndim) if i != j],
+                        partial=(j,))
+    pl = list(t.placements)
+    pl[j] = Shard(dim)
+    return DTensor.from_local(local.narrow(dim, start, stop - start), mesh,
+                              pl, run_check=False, shape=t.shape,
+                              stride=_contiguous(t.shape))
 
 
 def tree_map(fn, tree, *rest):

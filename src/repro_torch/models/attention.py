@@ -311,10 +311,8 @@ def _chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int):
     # kv-head groups (the GQA pinning; sequence parallelism where the heads
     # divide the axis): each rank runs its own q heads against the kv
     # heads they read.  A replicated q (heads that do not divide the axis)
-    # is split on its heads where autograd records nothing (serving); in
-    # a train step it stays whole, as ROADMAP Queue 3 says
-    q, by_q_head = split_q_heads(q, 3, nkv,
-                                 replicated=not torch.is_grad_enabled())
+    # is split on its heads too, its gradient each rank's Partial share
+    q, by_q_head = split_q_heads(q, 3, nkv)
     if by_q_head:
         qd, kd = {"batch": 0, "qheads": 3, "rows": 2}, {"batch": 0}
         ad = {"batch": 0, "qheads": 2, "rows": 3}

@@ -38,7 +38,11 @@ Where the kv heads do not divide the model axis, each rank runs the
 attention of its own q heads: qwen2-0.5b ``decode_32k`` at (4, 4) within
 1.12x the reference's per-device FLOPs, and the llama3.2-1b cut's
 attention products at edge 4 at most a sixteenth of its count at one
-rank (a (1, 1) run of the cut, started with the others).
+rank (a (1, 1) run of the cut, started with the others); the qwen2-0.5b
+SMOKE cut's q reaches its train attention replicated and is split on its
+heads, so at edge 4 rank 0's attention products are at most 1.02x an
+eighth of its count at one rank (1 of 2 q heads on a quarter of the
+batch; a (1, 1) run likewise).
 
 The serving prefill splits its dense products and its attention over the
 model axis: llama3.2-1b, qwen2-0.5b, falcon-mamba-7b and zamba2-7b at
@@ -98,6 +102,10 @@ TRAIN_CUTS = {
 }
 # its 2 kv heads do not divide the model axis (4): q splits on its heads
 HEADS_CUT = "llama3.2-1b"
+# its q (2 heads of 32 columns) reaches the attention replicated on the
+# model axis (4) and is split on its heads, 1, 1, 0 and 0 a rank
+REPLICATED_Q_CUT, REPLICATED_Q_HEADS, REPLICATED_Q_RANK0_HEADS = \
+    "qwen2-0.5b", 2, 1
 # the prefill's cuts: published widths, 2 layers, a short shape
 PREFILL_CUT = dict(published=True, n_layers=2, seq_len=1024, global_batch=8)
 PREFILL_ARCHS = ("llama3.2-1b", "qwen2-0.5b", "falcon-mamba-7b", "zamba2-7b")
@@ -149,10 +157,11 @@ def runs(tmp_path_factory):
         jobs[f"cut:{arch}"] = (scale, [
             sys.executable, worker, arch, "train_4k", "single",
             json.dumps(cut), str(out / "cuts")])
-    # the q-head split's cell at one rank: nothing split
-    jobs[f"cut1:{HEADS_CUT}"] = ("1", [
-        sys.executable, worker, HEADS_CUT, "train_4k", "single",
-        json.dumps(TRAIN_CUTS[HEADS_CUT][1]), str(out / "cuts1")])
+    # the q-head splits' cells at one rank: nothing split
+    for arch in (HEADS_CUT, REPLICATED_Q_CUT):
+        jobs[f"cut1:{arch}"] = ("1", [
+            sys.executable, worker, arch, "train_4k", "single",
+            json.dumps(TRAIN_CUTS[arch][1]), str(out / "cuts1")])
     for arch in PREFILL_ARCHS:
         for scale, sub in (("4", "pre4"), ("1", "pre1")):
             jobs[f"{sub}:{arch}"] = (scale, [
@@ -299,6 +308,24 @@ def test_train_attention_runs_each_ranks_own_heads(runs):
 
     b4, b1 = bmm("cuts"), bmm("cuts1")
     assert b4 > 0 and 16 * b4 <= b1, b1 / b4
+
+
+def test_train_attention_splits_a_replicated_q_on_its_heads(runs):
+    """The qwen2-0.5b SMOKE cut at edge 4 (2 q heads, 1 kv head; sequence
+    parallel): its q reaches the attention replicated on the model axis
+    and is split on its heads in the train step too, so rank 0 runs 1 of
+    the 2 q heads on its quarter of the batch: its attention products
+    (``bmm``) are at most 1.02x an eighth of the same cell's at one rank
+    (read 1.0000; with q whole on every rank, a quarter)."""
+    out, logs = runs
+    for name in (f"cut:{REPLICATED_Q_CUT}", f"cut1:{REPLICATED_Q_CUT}"):
+        rc, stderr = logs[name]
+        assert rc == 0, stderr[-3000:]
+    stem = f"{REPLICATED_Q_CUT}__train_4k__single.ops.json"
+    b4, b1 = (json.loads((out / sub / stem).read_text())["aten.bmm"]["flops"]
+              for sub in ("cuts", "cuts1"))
+    share = b1 / 4 * REPLICATED_Q_RANK0_HEADS / REPLICATED_Q_HEADS
+    assert 0 < b4 <= 1.02 * share, b4 / share
 
 
 @pytest.mark.parametrize("arch", list(TRAIN_CUTS))

@@ -45,6 +45,35 @@ the scores nearly blind to the key bias), a leaf may differ from the
 sharded reference by that spread on top of 1e-4 x max; the worker
 reports the spread, and the test prints each leaf it widened.
 
+A spread fitted to one draw does not hold under every float32 reduction
+order (qwen2's ``bk`` read 1.83e-2 x max under another torch), so a
+master entry may also lie within AdamW's own bound (``adamw_bound``).
+The m leaves are held to 1e-4 x max, so the two packages' step
+gradients agree to d_t = 1e-4 x max |g_t| over the leaf.  The
+reference's worker records m and v before the first step and after each,
+and each step's learning rate lr_t (the warmup's, small at steps 1-2);
+from them come each step's gradient g_t = (m_t - b1 m_(t-1)) / (1 - b1),
+clipped as AdamW takes it, mh_t = m_t / (1 - b1^t) and vh_t = v_t / (1 -
+b2^t).  Step t moves an entry by lr_t (r_t + wd p), r_t = mh_t /
+(sqrt(vh_t) + eps).  Gradients g_s (s <= t) each moved by at most D_t =
+max over s <= t of d_s move mh_t by at most D_t (its weights w_s are
+positive and sum to 1) and sqrt(vh_t) by at most D_t (a weighted root
+mean square with weights a_s summing to 1: the triangle inequality), so
+to first order r_t moves by at most D_t (1 + |r_t|) / (sqrt(vh_t) +
+eps).  Whatever the gradients, |r_t| <= C_t = sqrt(sum w_s^2 / a_s)
+(Cauchy-Schwarz; C_1 = 1, C_2 = 1.0007), so two runs' r_t differ by at
+most 2 C_t, the width of the range of AdamW's updates: the cap, which an
+entry whose gradient lies below rounding noise (|g| near 1e-9 against
+eps 1e-8) reaches.  The weight decay multiplies an earlier difference by
+1 - lr_t wd < 1.  So after T steps an entry lies within the sum over t
+of lr_t min(D_t (1 + |r_t|) / (sqrt(vh_t) + eps), 2 C_t) of the
+reference's; an entry whose gradient is near its leaf's largest gets
+about 2e-4 lr_t a step.  A master entry passes within 1e-4 x max plus the
+larger of the spread and its bound; m and v keep 1e-4 x max plus the
+spread, and the loss 2e-5 x |ref|.  The test prints, per leaf, the
+entries whose bound exceeds the rest of their tolerance, how many of them
+needed it, and the largest bound.
+
 Serving cases run ``build_prefill_step`` on a zero cache and then four
 ``build_decode_step`` steps over that cache, for llama3.2-1b and
 whisper-medium SMOKE at (2, 2), in float32 (logits and cache leaves
@@ -95,12 +124,14 @@ from repro.launch.steps import build_train_step as R_build
 from repro.launch.steps import init_train_state as R_init
 from repro.models import registry as R_reg
 from repro.models.config import ShapeConfig as R_Shape
-from torch_shard_worker import with_cut
+from repro.optim.adamw import OptConfig as R_Opt
+from torch_shard_worker import OPT, with_cut
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOSS_TOL, LEAF_TOL = 2e-5, 1e-4
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 SEQ, BATCH = 32, 4
+OPT_REF = R_Opt(**OPT)  # the workers' optimizer: b1, b2 and eps
 
 TRAIN = [
     dict(name="llama_tp_2x2", arch="llama3.2-1b", mesh=(2, 2)),
@@ -176,6 +207,11 @@ MOE_CASES = ("moe_2x2", "moe_drop_2x2", "moe_ff_1x4", "moe_float32")
 # the head over a vocabulary the model axis does not divide: each rank's
 # logits of its own rows
 HEAD_ROWS_CASES = ("internvl_seq_1x4",)
+# train cases whose q reaches the chunked attention replicated on the
+# model axis (2 and 6 heads in columns of ``wq`` that do not split 4 ways
+# into whole heads): each rank runs its own q heads, 1, 1, 0 and 0 and
+# 2, 2, 2 and 0
+Q_HEAD_TRAIN_CASES = ("qwen_seq_1x4", "llama6_seq_1x4")
 
 
 def free_port() -> int:
@@ -330,6 +366,33 @@ def assert_specs(port_specs, ref_specs):
             assert got == tuple(want), (field, name, got, want)
 
 
+def adamw_bound(moments, lrs, path):
+    """Per entry of the master leaf at ``path``, how far AdamW's steps may
+    move it when its gradients are perturbed by ``LEAF_TOL`` x their
+    largest entry (the module docstring derives it); ``moments`` holds the
+    reference's m and v before the first step and after each, ``lrs``
+    each step's learning rate."""
+    def leaf(field, t):
+        x = moments[t][field]
+        for k in path:
+            x = x[k.key]
+        return np.asarray(x, np.float64)
+
+    b1, b2, eps = OPT_REF.b1, OPT_REF.b2, OPT_REF.eps
+    bound, delta = 0.0, 0.0
+    for t, lr in enumerate(lrs, 1):
+        m_prev, m, v = leaf("m", t - 1), leaf("m", t), leaf("v", t)
+        g = (m - b1 * m_prev) / (1 - b1)
+        delta = max(delta, LEAF_TOL * float(np.abs(g).max()))
+        mhat, s = m / (1 - b1 ** t), np.sqrt(v / (1 - b2 ** t)) + eps
+        w = [(1 - b1) * b1 ** (t - j) / (1 - b1 ** t) for j in range(1, t + 1)]
+        a = [(1 - b2) * b2 ** (t - j) / (1 - b2 ** t) for j in range(1, t + 1)]
+        ratio_max = float(np.sqrt(sum(x * x / y for x, y in zip(w, a))))
+        bound = bound + np.minimum(lr * delta * (1 + np.abs(mhat) / s) / s,
+                                   2 * lr * ratio_max)
+    return bound
+
+
 def check_train(ref, port):
     for a, b in zip(port["losses"], ref["losses"]):
         assert abs(a - b) <= LOSS_TOL * abs(b), (port["losses"], ref["losses"])
@@ -343,18 +406,31 @@ def check_train(ref, port):
             for k in path:
                 got = got[k.key]
                 single = None if single is None else single[k.key]
+            name = f"{field}{jax.tree_util.keystr(path)}"
             scale = max(float(np.abs(want).max()), 1e-30)
             spread = (0.0 if single is None
                       else float(np.abs(want - single).max()))
             if spread > LEAF_TOL * scale:
-                print(f"{field}{jax.tree_util.keystr(path)}: the reference's "
-                      f"sharded vs one-device spread {spread / scale:.3e} x "
-                      f"max")
+                print(f"{name}: the reference's sharded vs one-device spread "
+                      f"{spread / scale:.3e} x max")
             else:
                 spread = 0.0
-            err = float(np.abs(got - want).max())
-            assert err <= LEAF_TOL * scale + spread, (
-                field, jax.tree_util.keystr(path), err / scale, spread / scale)
+            err = np.abs(np.asarray(got, np.float64) - want)
+            tol = LEAF_TOL * scale + spread
+            if field == "params" and "moments" in ref:
+                bound = adamw_bound(ref["moments"], ref["lrs"], path)
+                wide = bound > tol
+                if wide.any():
+                    needed = np.flatnonzero(err > tol)
+                    print(f"{name}: the AdamW bound widens "
+                          f"{int(wide.sum())} of {wide.size} entries, "
+                          f"largest {float(bound.max()) / scale:.3e} x max; "
+                          f"{needed.size} needed it {needed[:16].tolist()}")
+                tol = LEAF_TOL * scale + np.maximum(spread, bound)
+            bad = err > tol
+            assert not bad.any(), (
+                name, float(err.max()) / scale, spread / scale,
+                int(bad.sum()), np.flatnonzero(bad)[:8].tolist())
     assert_specs(port["specs"], ref["specs"])
 
 
@@ -414,7 +490,8 @@ def test_serving_prefill_splits_q_on_its_heads(results, name):
     """At (1, 4) the 2 kv heads do not divide the model axis: in every
     layer's prefill attention each rank runs its own q heads."""
     _, port = pair(results, name)
-    assert port["q_by_head"] == [True, True], port["q_by_head"]
+    split = [s for _, s in port["q_heads"]]
+    assert split == [True, True], port["q_heads"]
 
 
 @pytest.mark.parametrize("name", SSM_CASES)
@@ -476,6 +553,23 @@ def test_head_runs_on_each_ranks_own_rows(results, name):
     _, port = pair(results, name)
     flags = port["head_rows"]
     assert len(flags) == 4 and all(flags), flags
+
+
+@pytest.mark.parametrize("name", Q_HEAD_TRAIN_CASES)
+def test_train_splits_a_replicated_q_on_its_heads(results, name):
+    """Every q reaching the chunked attention in these train steps (each
+    microbatch of both steps, and its recompute, in every layer) arrives
+    replicated on the model axis and leaves ``split_q_heads`` split on its
+    heads: each rank runs the attention of its own q heads, its gradient
+    a Partial share (``dist.sharding.own_heads``), as the reference pins q
+    on its heads."""
+    _, port = pair(results, name)
+    seen = port["q_heads"]
+    case = next(c for c in TRAIN if c["name"] == name)
+    layers = with_cut(RC.get_config(case["arch"], smoke=True),
+                      case.get("cut")).n_layers
+    assert len(seen) % layers == 0 and len(seen) >= 4 * layers, seen
+    assert all(s == ("R", True) for s in seen), seen
 
 
 @pytest.mark.parametrize("name", MOE_CASES)

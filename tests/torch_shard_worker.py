@@ -15,11 +15,12 @@ gets a pickle {case name: result} of numpy arrays, each state leaf's
 sharding spec (as a tuple) and the losses; a case that raises records
 its error instead.
 
-Case kinds: ``train`` (two steps of ``build_train_step``), ``serve``
+Case kinds: ``train`` (two steps of ``build_train_step``; the reference
+also records m and v before the first step and after each, and each
+step's learning rate, for the test's AdamW bound), ``serve``
 (``build_prefill_step`` on a zero cache, then ``build_decode_step`` steps
 over that cache; the port also records, in call order, whether each
-``summed`` of the prefill met a Partial sum and whether each q reaching
-its chunked attention was split on its heads), ``restore`` (one step on a (4, 1) mesh, a checkpoint,
+``summed`` of the prefill met a Partial sum), ``restore`` (one step on a (4, 1) mesh, a checkpoint,
 restored onto a 2-rank (2, 1) mesh, one more step) and ``resize`` (a
 ``Trainer`` on (4, 1) resized onto (2, 2), one more step).  In every case
 the port records, per Mamba mixer call and in call order, whether the
@@ -30,7 +31,10 @@ per decode attention
 call on the kv heads' split whether it ran on local shards and how many kv
 heads a rank held (``decode_kv_local``; torch 2.11 rejects the DTensor
 einsum there), per LM head call on more than one row whether its logits
-came out split on their rows over the model axis (``head_rows``), and
+came out split on their rows over the model axis (``head_rows``), per
+q reaching the chunked attention its placement on the model axis as it
+arrived ("R", "S(d)" or "P") and whether ``split_q_heads`` split it on
+its heads (``q_heads``), and
 per MoE layer call, in call order, each rank's local
 expert block (E, C, d) (``expert_blocks``, one list a rank) and the pairs
 the call's capacity dropped in each half of its tokens (``moe_dropped``).
@@ -113,12 +117,20 @@ def run_ref(cases, tmp):
             if case["kind"] == "train":
                 built = train_built(cfg, case, case["mesh"])
                 st = state_of(case["state"], built.in_shardings[0])
-                losses = []
+                losses, lrs = [], []
+                # m and v before the first step and after each: each
+                # step's gradient and v-hat for the test's AdamW bound
+                moments = [{f: case["state"][f] for f in ("m", "v")}]
                 for b in case["batches"]:
                     st, m = built.fn(st, b)
                     losses.append(float(m["loss"]))
+                    lrs.append(float(m["lr"]))
+                    # copies: the next step donates the state's buffers
+                    moments.append({f: jax.tree.map(np.array, getattr(st, f))
+                                    for f in ("m", "v")})
                 res = dict(losses=losses, state=numpy_state(st),
-                           specs=specs(st), n_acc=built.meta["n_acc"])
+                           specs=specs(st), n_acc=built.meta["n_acc"],
+                           moments=moments, lrs=lrs)
                 # the same steps on one device: the reference's own spread
                 one = train_built(cfg, dict(case, fsdp=None), (1, 1))
                 st = state_of(case["state"], one.in_shardings[0])
@@ -349,28 +361,21 @@ def port_rank(rank, port, cases, tmp, out_path):
 @contextlib.contextmanager
 def _prefill_layouts():
     """Record, while the block is open, whether each ``summed`` call of
-    the model code met a Partial placement (``summed_partial``) and
-    whether each q reaching ``_chunked_attention`` was split on its heads
-    (``q_by_head``), in call order."""
+    the model code met a Partial placement (``summed_partial``), in call
+    order."""
     from torch.distributed.tensor import DTensor, Partial
 
-    from repro_torch.models import attention, encdec, transformer
+    from repro_torch.models import encdec, transformer
 
-    seen = {"summed_partial": [], "q_by_head": []}
-    summed, split = transformer.summed, attention.split_q_heads
+    seen = {"summed_partial": []}
+    summed = transformer.summed
 
     def summed_rec(t, *a):
         seen["summed_partial"].append(isinstance(t, DTensor) and any(
             isinstance(p, Partial) for p in t.placements))
         return summed(t, *a)
 
-    def split_rec(t, dim, groups, **kw):
-        out = split(t, dim, groups, **kw)
-        seen["q_by_head"].append(out[1])
-        return out
-
-    mods = ((transformer, "summed", summed_rec), (encdec, "summed", summed_rec),
-            (attention, "split_q_heads", split_rec))
+    mods = ((transformer, "summed", summed_rec), (encdec, "summed", summed_rec))
     old = [getattr(m, n) for m, n, _ in mods]
     for m, n, f in mods:
         setattr(m, n, f)
@@ -413,18 +418,27 @@ def _record_layouts() -> dict:
     held a Partial placement (``embed_grad_partial``), for each decode
     attention call on the kv heads (``attention._decode_kv_heads``)
     whether its operands were local shards and the kv heads of the
-    rank's cache shard (``decode_kv_local``), and for each LM head call
+    rank's cache shard (``decode_kv_local``), for each LM head call
     on more than one row (``LM._head``) whether its logits came out split
-    on their rows (Shard(1)) over the model axis (``head_rows``).
-    Returns the dict of lists that receive them."""
+    on their rows (Shard(1)) over the model axis (``head_rows``), and for
+    each q of the chunked attention (``split_q_heads`` on a 5-D q) its
+    placement on the model axis as it arrived and whether it left split
+    on its heads (``q_heads``).  Returns the dict of lists that receive
+    them."""
     from torch.distributed.tensor import DTensor, Partial, Shard
 
     from repro_torch.models import attention, common, transformer
 
     seen = {"embed_grad_partial": [], "decode_kv_local": [],
-            "head_rows": []}
+            "head_rows": [], "q_heads": []}
     like, kv_heads = common.grad_like, attention._decode_kv_heads
-    head = transformer.LM._head
+    head, split = transformer.LM._head, attention.split_q_heads
+
+    def split_rec(t, dim, groups):
+        out = split(t, dim, groups)
+        if out[0].ndim == 5:  # the chunked attention's q, not the decode's
+            seen["q_heads"].append((_model_placement(t), out[1]))
+        return out
 
     def head_rec(self, x):
         out = head(self, x)
@@ -449,8 +463,23 @@ def _record_layouts() -> dict:
         return kv_heads(qh, k, v, **kw)
 
     common.grad_like, attention._decode_kv_heads = like_rec, kv_rec
-    transformer.LM._head = head_rec
+    transformer.LM._head, attention.split_q_heads = head_rec, split_rec
     return seen
+
+
+def _model_placement(t) -> str:
+    """DTensor ``t``'s placement on the ``model`` mesh axis: "R", "S(d)"
+    or "P"; "-" for a plain tensor or a mesh without that axis."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    names = getattr(getattr(t, "device_mesh", None), "mesh_dim_names",
+                    None) or ()
+    if not isinstance(t, DTensor) or "model" not in names:
+        return "-"
+    p = t.placements[names.index("model")]
+    if isinstance(p, Shard):
+        return f"S({p.dim})"
+    return "P" if isinstance(p, Partial) else "R"
 
 
 def _record_moe() -> dict:

@@ -24,7 +24,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RECORDS = ("embed_grad_partial", "decode_kv_local", "ssm_by_channel",
-           "expert_blocks", "moe_dropped", "head_rows")
+           "expert_blocks", "moe_dropped", "head_rows", "q_heads")
 
 
 def _tests():
